@@ -2,9 +2,10 @@
 
 Same subpackage layout as the JAX package, same function names and
 signatures where the idiom allows; plain functions on tensors, with the
-device carried explicitly (``SlamSystem(..., device="cuda")``) and every
-random draw taken from an explicit ``torch.Generator``. The one hand kernel
-(the windowed Hamming top-2 search) lives in ``csrc/cuda_hamming.cu`` and
+device carried explicitly (entry points run on the GPU unless the caller
+passes ``device="cpu"``) and every random draw taken from an explicit
+``torch.Generator``. The one hand kernel (the windowed Hamming top-2
+search) lives in ``csrc/cuda_hamming.cu`` and
 is bound by ``ops/cuda_hamming.py``.
 
 This package never imports jax or the JAX package.

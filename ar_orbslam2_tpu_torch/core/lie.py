@@ -157,6 +157,18 @@ def quat_to_rot(q):
     ], -2)
 
 
+def orthonormalize(R, steps=2):
+    """Pull a nearly orthogonal (..., 3, 3) matrix back to SO(3) on its
+    device, without an SVD: Newton steps of the polar decomposition,
+    R <- R (3 I - R^T R) / 2, which converge quadratically (an
+    orthonormality error of 1e-3 is below float32 rounding after two).
+    No host read, so it can be recorded into a CUDA graph."""
+    eye3 = torch.eye(3, dtype=R.dtype, device=R.device)
+    for _ in range(steps):
+        R = 0.5 * (R @ (3.0 * eye3 - R.transpose(-1, -2) @ R))
+    return R
+
+
 def project_so3(R):
     """Nearest rotation matrix (Frobenius) via SVD — numpy, host-side.
 

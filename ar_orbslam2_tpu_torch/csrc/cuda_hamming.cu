@@ -210,3 +210,13 @@ extern "C" int hamming_top2_launch(const void* q_desc, const void* q_uv,
   }
   return (int)cudaGetLastError();
 }
+
+// Host helper for the graph runner (system/graph.py): the number of nodes
+// of a captured CUDA graph, given its cudaGraph_t handle. Returns the CUDA
+// error code (0 on success).
+extern "C" int cuda_graph_node_count(void* graph, unsigned long long* count) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  *count = (unsigned long long)n;
+  return (int)err;
+}

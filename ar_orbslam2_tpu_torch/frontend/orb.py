@@ -194,6 +194,19 @@ def _gather_patches(img_f, ys, xs, half):
 
 
 _IC_TABLES = None
+_DEVICE_CONSTANTS: dict = {}
+
+
+def _constant(name, device, make):
+    """A constant table on `device`, uploaded once per (name, device): a
+    host-to-device copy per call would synchronise the stream, and cannot
+    be recorded into a CUDA graph."""
+    key = (name, str(device))
+    hit = _DEVICE_CONSTANTS.get(key)
+    if hit is None:
+        hit = torch.as_tensor(make(), device=device)
+        _DEVICE_CONSTANTS[key] = hit
+    return hit
 
 
 def _ic_tables():
@@ -214,8 +227,8 @@ def _ic_tables():
 def ic_angles(img_f, ys, xs):
     """Intensity-centroid orientation (degrees). Parity: IC_Angle
     (src/ORBextractor.cc)."""
-    _, dxs, dys = (torch.as_tensor(a, device=img_f.device)
-                   for a in _ic_tables())
+    dxs = _constant("ic_dx", img_f.device, lambda: _ic_tables()[1])
+    dys = _constant("ic_dy", img_f.device, lambda: _ic_tables()[2])
     patches = _gather_patches(img_f, ys, xs, HALF_PATCH)
     m10 = (patches * dxs).sum((1, 2))
     m01 = (patches * dys).sum((1, 2))
@@ -225,9 +238,12 @@ def ic_angles(img_f, ys, xs):
 def gaussian_blur7(img_f):
     """7x7 sigma=2 separable blur, reflect border — parity with the
     GaussianBlur call before descriptor computation."""
-    x = np.arange(-3, 4)
-    k = np.exp(-(x ** 2) / (2 * 2.0 ** 2))
-    k = torch.as_tensor(k / k.sum(), dtype=torch.float32, device=img_f.device)
+    def taps():
+        x = np.arange(-3, 4)
+        k = np.exp(-(x ** 2) / (2 * 2.0 ** 2))
+        return (k / k.sum()).astype(np.float32)
+
+    k = _constant("blur7", img_f.device, taps)
     h, w = img_f.shape
     p = F.pad(img_f[None, None], (0, 0, 3, 3), mode="reflect")[0, 0]
     v = sum(p[i:i + h] * k[i] for i in range(7))
@@ -243,8 +259,8 @@ def brief_descriptors(blur_f, ys, xs, angles_deg):
     (src/ORBextractor.cc): sample offsets (x,y) rotate to
     (x cosθ - y sinθ, x sinθ + y cosθ), rounded, compared a < b. Samples
     gather directly from the flattened blurred image."""
-    pat = torch.as_tensor(np.asarray(BIT_PATTERN_31, np.float32),
-                          device=blur_f.device)      # (256,4) xa ya xb yb
+    pat = _constant("brief", blur_f.device,          # (256,4) xa ya xb yb
+                    lambda: np.asarray(BIT_PATTERN_31, np.float32))
     th = angles_deg * (math.pi / 180.0)
     ca, sa = torch.cos(th), torch.sin(th)           # (N,)
     xa, ya, xb, yb = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]

@@ -7,6 +7,12 @@ frame. ``export_state`` reads that state from either package's SlamSystem
 into plain numpy (it reads attributes only and imports neither framework's
 device code); ``from_state`` builds a port SlamSystem from it. With the two,
 both packages can track the same next frames from the same map.
+
+A live fused frontend is carried too: the device state pytree (as numpy),
+the slot->landmark table, the bundle anchor, the counter baselines, and
+Tracking's fused bookkeeping (``_fused_prev_pose``, the ``_inl_*`` levels,
+``last_rel``). The JAX package keeps ±1 signs beside the packed landmark
+descriptors; the port re-expands them on its device.
 """
 from __future__ import annotations
 
@@ -15,11 +21,15 @@ import copy
 import numpy as np
 
 from .mapstore.checkpoint import _ARRAYS
+from .ops import hamming as H
 from .system.frame import Frame
 from .system.slam import SlamSystem
 
 _FRAME_FIELDS = ("R", "t", "mp", "uv", "desc_bits", "octave", "valid",
                  "angle")
+_FUSED_SCALARS = ("version", "anchor_kf", "_bundle_epoch")
+_FUSED_ARRAYS = ("bundle_ids", "anchor_R", "anchor_t", "_acc_base_vis",
+                 "_acc_base_fnd")
 
 
 def _np(a):
@@ -35,11 +45,23 @@ def export_state(slam) -> dict:
         mp_replaced=np.array(s.mp_replaced, copy=True),
         mp_free=list(s.mp_free),
         next_kf=int(s.next_kf),
+        store_version=int(s.version),
         tracking=dict(
             state=t.state, ref_kf=int(t.ref_kf),
             last_kf_frame_id=int(t.last_kf_frame_id),
             velocity=None if t.velocity is None
-            else tuple(_np(v) for v in t.velocity)),
+            else tuple(_np(v) for v in t.velocity),
+            last_reloc_frame_id=int(t.last_reloc_frame_id),
+            inl_peak=float(getattr(t, "_inl_peak", 0.0)),
+            inl_decay=float(getattr(t, "_inl_decay", 0.0)),
+            low_streak=int(getattr(t, "_low_streak", 0)),
+            last_rel=None if getattr(t, "last_rel", None) is None
+            else (_np(t.last_rel[0]), _np(t.last_rel[1]),
+                  int(t.last_rel[2])),
+            fused_prev_pose=None
+            if getattr(t, "_fused_prev_pose", None) is None
+            else tuple(_np(v) for v in t._fused_prev_pose)),
+        fused=_export_fused(getattr(t, "fused", None)),
         mapper_recent=dict(slam.mapper.recent),
         next_frame_id=int(slam._next_frame_id),
         last_frame=None)
@@ -53,7 +75,43 @@ def export_state(slam) -> dict:
     return state
 
 
-def from_state(cam, cfg, state: dict, device="cpu", seed=0) -> SlamSystem:
+def _export_fused(fe):
+    """A live FusedFrontend (either package) as numpy, or None."""
+    if fe is None or fe.state is None:
+        return None
+    out = dict(state={k: np.array(v.cpu() if hasattr(v, "cpu") else v,
+                                  copy=True)
+                      for k, v in fe.state.items() if k != "lm_signs"},
+               local_kf=None if fe.local_kf is None
+               else [int(k) for k in fe.local_kf],
+               vel=None if getattr(fe, "_vel", None) is None
+               else tuple(_np(v) for v in fe._vel))
+    for k in _FUSED_SCALARS:
+        out[k] = int(getattr(fe, k))
+    for k in _FUSED_ARRAYS:
+        out[k] = _np(getattr(fe, k))
+    return out
+
+
+def _load_fused(fe, fused: dict):
+    """Put an exported fused state into a port FusedFrontend: one upload
+    into its static buffers, then the host-side tables."""
+    fe._blob.fill(fused["state"])
+    fe._blob.upload()
+    fe._bufs["lm_signs"].copy_(H.signs_from_packed(fe._bufs["lm_desc"]))
+    fe._snap_desc.copy_(H.pack_bits_device(fe._bufs["kp_desc"]))
+    fe.state = fe._bufs
+    for k in _FUSED_SCALARS:
+        setattr(fe, k, int(fused[k]))
+    for k in _FUSED_ARRAYS:
+        setattr(fe, k, _np(fused[k]))
+    fe.local_kf = fused["local_kf"]
+    fe._vel = fused["vel"]
+    fe.rec_anchor = None
+    fe.rec_ids = None
+
+
+def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     """A port SlamSystem holding `state` (from export_state, or the same
     keys built by hand: a map saved by the JAX package's save_map supplies
     every array of ``state["map"]``)."""
@@ -93,4 +151,19 @@ def from_state(cam, cfg, state: dict, device="cpu", seed=0) -> SlamSystem:
         frame.t_cr = lf.get("t_cr")
         t.last_frame = frame
         slam.last_frame = frame
+
+    t.last_reloc_frame_id = int(tr.get("last_reloc_frame_id",
+                                       t.last_reloc_frame_id))
+    t._inl_peak = float(tr.get("inl_peak", 0.0))
+    t._inl_decay = float(tr.get("inl_decay", 0.0))
+    t._low_streak = int(tr.get("low_streak", 0))
+    t.last_rel = tr.get("last_rel")
+    t._fused_prev_pose = tr.get("fused_prev_pose")
+    fused = state.get("fused")
+    if fused is not None and t.fused is not None:
+        _load_fused(t.fused, fused)
+        # s.bump() above moved the store's version: a bundle that was
+        # current for the exported map is current for the carried one
+        current = fused["version"] == state.get("store_version")
+        t.fused.version = s.version if current else -1
     return slam

@@ -1,0 +1,105 @@
+"""Asynchronous mapping stage — the reference's LocalMapping thread.
+
+Port of ar_orbslam2_tpu/mapping/async_mapper.py. Parity: System::System
+spawns LocalMapping as a long-lived thread fed through a keyframe queue;
+tracking NEVER waits for mapping — it keeps tracking against the map as of
+the last completed mapping step, and new keyframes are simply not accepted
+while the mapper is saturated (SetAcceptKeyFrames(false)).
+
+One worker thread drains a queue of freshly inserted keyframe ids (or
+deferred-insert callables) and runs the mapping stage (triangulate -> fuse
+-> local BA -> cull) for each. On a CUDA device the worker's device work
+runs on a stream of its own, so it overlaps the tracking thread's graph
+replays instead of queueing behind them. The device-resident tracking state
+(system/fused.py) keeps using its bundle snapshot while the mapper works;
+the host store is protected by the coarse MapStore.lock (mMutexMapUpdate
+parity) held around write-backs and chunk-boundary reads. The fused bundle
+refreshes at the next chunk boundary after the mapper published.
+
+Loop closing and the relocalizer's keyframe database are not ported yet;
+the worker runs the mapping stage only.
+"""
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+
+import torch
+
+
+class AsyncMapper:
+    """Keyframe-queue worker wrapping LocalMapper."""
+
+    def __init__(self, mapper, device=None):
+        self.mapper = mapper
+        self.device = torch.device(mapper.device if device is None
+                                   else device)
+        self._q: queue.Queue = queue.Queue()
+        self._pending = 0
+        self._pending_lock = threading.Lock()
+        self.error: BaseException | None = None
+        self.n_processed = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="local-mapping")
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+    def busy(self) -> bool:
+        """A mapping step is queued OR running."""
+        with self._pending_lock:
+            return self._pending > 0
+
+    def queue_idle(self) -> bool:
+        """Parity: LocalMapping::AcceptKeyFrames — the reference accepts
+        a new keyframe while the PREVIOUS step is still running (the
+        queue drains one behind); it only refuses when work is piling
+        up."""
+        return self._q.qsize() == 0
+
+    def _put(self, item):
+        if self.error is not None:
+            raise RuntimeError("async mapper died") from self.error
+        with self._pending_lock:
+            self._pending += 1
+        self._q.put(item)
+
+    def submit(self, kf: int):
+        self._put(int(kf))
+
+    def submit_task(self, fn):
+        """Run an arbitrary callable on the mapping worker. The pipelined
+        tracking path uses this to defer the WHOLE keyframe event
+        (snapshot readback + store insert + mapping) off the tracking
+        thread: a materialize readback queues behind the chunk in flight,
+        and the tracking thread must not block on it."""
+        self._put(fn)
+
+    def join(self):
+        """Drain the queue (parity: the Shutdown thread joins)."""
+        self._q.join()
+        if self.error is not None:
+            raise RuntimeError("async mapper died") from self.error
+
+    # ------------------------------------------------------------------
+    def _run(self):
+        if self.device.type == "cuda":
+            scope = torch.cuda.stream(torch.cuda.Stream(self.device))
+        else:
+            scope = contextlib.nullcontext()
+        with scope:
+            while True:
+                kf = self._q.get()
+                try:
+                    if self.error is None:
+                        if callable(kf):
+                            kf = kf()    # deferred insert -> kf id (or None)
+                        if kf is not None:
+                            self.mapper.process_keyframe(kf)
+                        self.n_processed += 1
+                except BaseException as e:      # surface on next submit/join
+                    self.error = e
+                finally:
+                    with self._pending_lock:
+                        self._pending -= 1
+                    self._q.task_done()

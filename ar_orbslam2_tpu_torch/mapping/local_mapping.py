@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.lie import project_so3
 from ..estimation.local_ba import bundle_adjust
 from ..matching import matcher
@@ -103,11 +104,11 @@ class LocalMapper:
     """Per-keyframe mapping stage over a MapStore."""
 
     def __init__(self, store, cam, cfg: LocalMapperConfig = LocalMapperConfig(),
-                 device="cpu"):
+                 device=None):
         self.store = store
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # recently created landmarks: mp_id -> kf_id at creation
         self.recent: dict[int, int] = {}
         self.last_stats: dict = {}   # per-KF diagnostics (culled/created)

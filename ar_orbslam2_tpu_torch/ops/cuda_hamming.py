@@ -74,8 +74,21 @@ def _library():
         lib.hamming_top2_launch.argtypes = [p] * 10 + [
             ctypes.c_int, ctypes.c_int] + [p] * 5
         lib.hamming_top2_launch.restype = ctypes.c_int
+        lib.cuda_graph_node_count.argtypes = [
+            p, ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.cuda_graph_node_count.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def graph_node_count(raw_graph: int) -> int:
+    """Nodes of a captured CUDA graph (``cudaGraph_t`` handle as an int),
+    through the host helper built beside the kernel."""
+    count = ctypes.c_ulonglong(0)
+    err = _library().cuda_graph_node_count(raw_graph, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaGraphGetNodes failed: CUDA error {err}")
+    return int(count.value)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +186,12 @@ def top2_cuda(q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
         if err != 0:
             raise RuntimeError(
                 f"hamming_top2 launch failed: CUDA error {err}")
-        fused_windowed_top2.launches += 1
+        # a launch recorded into a CUDA graph under capture runs only when
+        # the graph is replayed: the graph runner adds it to `launches` then
+        if torch.cuda.is_current_stream_capturing():
+            fused_windowed_top2.captured += 1
+        else:
+            fused_windowed_top2.launches += 1
     unset = key == _INT_MAX           # every row INF: (INF, first row 0)
     kp_best_d = torch.where(unset, INF, key >> 16).to(torch.int32)
     kp_best_q = torch.where(unset, 0, key & 0xFFFF).to(torch.int32)
@@ -219,7 +237,8 @@ def fused_windowed_top2(q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
     return _filter(raw, th, nn_ratio, mutual)
 
 
-fused_windowed_top2.launches = 0
+fused_windowed_top2.launches = 0      # kernel launches that ran
+fused_windowed_top2.captured = 0      # launches recorded into CUDA graphs
 
 
 def fused_windowed_top2_reference(q_signs, q_uv, q_radius, q_olo, q_ohi,

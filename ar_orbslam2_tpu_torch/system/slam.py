@@ -1,19 +1,23 @@
 """SlamSystem — the public facade, parity with the reference System API.
 
-Port of ar_orbslam2_tpu/system/slam.py, per-frame monocular path: the
-constructor, frame construction (ORB on the system's device),
-track_monocular / track_monocular_batch, shutdown and the trajectory
-exports. Tracking -> LocalMapper run synchronously, in that order, around
-torch stages on ``device``.
+Port of ar_orbslam2_tpu/system/slam.py, monocular: the constructor, frame
+construction (ORB on the system's device), track_monocular,
+track_monocular_batch (per-frame, fused chunks, or the double-buffered
+pipeline with the mapping stage on a worker thread), precompile, shutdown
+and the trajectory exports. Everything runs on ``device``: the GPU unless
+the caller asks for the CPU.
 """
 from __future__ import annotations
 
+import copy
+import time
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..core.camera import Camera
+from ..core.device import resolve_device
 from ..frontend.orb import OrbConfig, extract_orb
 from ..mapping.local_mapping import LocalMapper, LocalMapperConfig
 from ..mapstore.map import MapConfig, MapStore
@@ -31,10 +35,9 @@ _ROADMAP = "ROADMAP.md, 'Modules still to port'"
 class SlamConfig:
     """The JAX package's SlamConfig, defaults included. Options this port
     does not implement yet raise NotImplementedError at construction — they
-    are never silently switched off. The runnable configuration is
-
-        SlamConfig(use_fused_tracking=False, async_mapping=False,
-                   enable_loop_closing=False, enable_relocalization=False)
+    are never silently switched off. Runnable: monocular with
+    ``enable_loop_closing=False, enable_relocalization=False`` and any
+    combination of ``use_fused_tracking`` and ``async_mapping``.
     """
     sensor: str = MONOCULAR
     map: MapConfig = field(default_factory=MapConfig)
@@ -49,10 +52,6 @@ class SlamConfig:
 
     def __post_init__(self):
         unported = [
-            (self.use_fused_tracking, "use_fused_tracking=True",
-             "item 1: system/fused.py"),
-            (self.async_mapping, "async_mapping=True",
-             "item 1: mapping/async_mapper.py"),
             (self.enable_relocalization, "enable_relocalization=True",
              "item 2: relocalization"),
             (self.enable_loop_closing, "enable_loop_closing=True",
@@ -68,8 +67,8 @@ class SlamConfig:
 
 
 def per_frame_config(**kw) -> SlamConfig:
-    """The configuration this port runs: the per-frame synchronous
-    monocular path (keyword overrides go to SlamConfig)."""
+    """The per-frame synchronous monocular path (keyword overrides go to
+    SlamConfig)."""
     base = dict(use_fused_tracking=False, async_mapping=False,
                 enable_loop_closing=False, enable_relocalization=False)
     base.update(kw)
@@ -80,9 +79,10 @@ class SlamSystem:
     """End-to-end SLAM pipeline with the reference System's API surface."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig | None = None,
-                 device="cpu", seed=0):
+                 device=None, seed=0):
         self.cam = cam
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.seed = seed
         cfg = per_frame_config() if cfg is None else cfg
         # keep the map's scale-band parameters in sync with the tracker's
         # pyramid config (one source of truth: TrackingConfig); copy first,
@@ -99,8 +99,16 @@ class SlamSystem:
         self.tracking = Tracking(self.store, self.mapper, cam, cfg.tracking,
                                  device=self.device, seed=seed)
         self._orb_cfg = OrbConfig(n_features=cfg.tracking.max_kp)
+        if cfg.use_fused_tracking and cfg.sensor == MONOCULAR:
+            from .fused import FusedFrontend
+            self.tracking.fused = FusedFrontend(
+                self.store, cam, cfg.tracking, self._orb_cfg, self.device)
+        if cfg.async_mapping:
+            from ..mapping.async_mapper import AsyncMapper
+            self.tracking.async_mapper = AsyncMapper(self.mapper)
         self._next_frame_id = 0
         self.last_frame = None
+        self.captures_at_warmup = None      # set by precompile()
 
     # ------------------------------------------------------------------
     # frame construction
@@ -136,7 +144,9 @@ class SlamSystem:
         uv = pad(features["uv"].astype(np.float32))
         if self.cam.has_distortion:
             from ..core.camera import undistort_points
-            uv = undistort_points(self.cam, torch.as_tensor(uv)).numpy()
+            uv = undistort_points(
+                self.cam, torch.as_tensor(uv, device=self.device)
+            ).cpu().numpy()
         frame = Frame(
             uv=uv,
             desc_bits=pad(features["desc"].astype(np.uint8)),
@@ -152,36 +162,290 @@ class SlamSystem:
     # ------------------------------------------------------------------
     # reference API surface
     # ------------------------------------------------------------------
+    @staticmethod
+    def _pose_matrix(R, t):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R
+        T[:3, 3] = t
+        return T
+
+    def _rebuild_from_last_frame(self) -> bool:
+        """Build the fused device state from the last tracked frame, when
+        there is one with a pose and a valid reference keyframe."""
+        t = self.tracking
+        lf = t.last_frame
+        if lf is None or lf.R is None or t.ref_kf < 0 \
+                or not self.store.kf_valid[t.ref_kf]:
+            return False
+        t.fused.rebuild(t.ref_kf, lf.mp, lf.R, lf.t,
+                        velocity=t.velocity, prev_oct=lf.octave)
+        t._fused_prev_pose = (lf.R.copy(), lf.t.copy())
+        return True
+
     def track_monocular(self, image_u8=None, timestamp=0.0, features=None):
         """Parity: System::TrackMonocular — returns Tcw (4x4) or None."""
+        t = self.tracking
+        fe = t.fused
+        if image_u8 is not None and features is None and fe is not None \
+                and t.state == "OK":
+            if not fe.ready():
+                self._rebuild_from_last_frame()
+            if fe.ready():
+                fid = self._next_frame_id
+                self._next_frame_id += 1
+                rec = t.track_fused(image_u8, timestamp, fid)
+                if rec.get("ok") and rec.get("R") is not None:
+                    return self._pose_matrix(rec["R"], rec["t"])
+                return None
         frame = self.make_frame(image_u8, features, timestamp)
         rec = self.tracking.track(frame)
         self.last_frame = frame
         if rec.get("ok") and frame.R is not None:
-            T = np.eye(4, dtype=np.float32)
-            T[:3, :3] = frame.R
-            T[:3, 3] = frame.t
-            return T
+            return self._pose_matrix(frame.R, frame.t)
         return None
 
+    def _consumed_poses(self, consumed):
+        metrics = self.tracking.metrics
+        return [self._pose_matrix(rec["R"], rec["t"])
+                for rec in metrics[len(metrics) - consumed:]]
+
     def track_monocular_batch(self, images, timestamps=None, chunk=8):
-        """Throughput API of the JAX package. With fused tracking not
-        ported, every frame takes the per-frame path (the JAX package's
-        loop when no fused frontend exists); `chunk` is accepted for API
-        parity. Returns a list of Tcw (4x4) or None."""
+        """Throughput API: track a sequence of mono images, processing
+        OK-state stretches as fused device chunks (one upload, `chunk`
+        frame steps and one readback — see system/fused.py).
+        Initialization and keyframe events fall back to the per-frame
+        paths. Returns a list of Tcw (4x4) or None.
+
+        With async mapping the chunks are double-buffered: the next
+        chunk is dispatched BEFORE the previous one's records are read
+        back, so the device never idles between chunks and keyframe
+        events ride the pipeline instead of stalling it. Without a fused
+        frontend every frame takes the per-frame path."""
+        t = self.tracking
+        fe = t.fused
         n = len(images)
         if timestamps is None:
             timestamps = [i / 30.0 for i in range(n)]
-        return [self.track_monocular(images[i], timestamp=timestamps[i])
-                for i in range(n)]
+        if fe is not None and t.async_mapper is not None:
+            return self._track_batch_pipelined(images, timestamps, chunk)
+        poses: list = []
+        am = t.async_mapper
+        i = 0
+        while i < n:
+            if fe is not None and t.state == "OK" and n - i >= chunk:
+                mapper_idle = am is None or not am.busy()
+                if fe.state is None:
+                    self._rebuild_from_last_frame()
+                elif not fe.ready() and mapper_idle \
+                        and t.ref_kf >= 0 \
+                        and self.store.kf_valid[t.ref_kf]:
+                    # async mapping finished: re-anchor the bundle
+                    with self.store.lock:
+                        fe.refresh_bundle(t.ref_kf, rel_pose=t.last_rel)
+                # a stale-but-usable bundle still tracks (the reference's
+                # tracking thread rides the old map while mapping runs)
+                if fe.state is not None:
+                    base = self._next_frame_id
+                    consumed = t.track_fused_chunk(
+                        np.stack(images[i:i + chunk]),
+                        timestamps[i:i + chunk], base)
+                    self._next_frame_id = base + consumed
+                    poses.extend(self._consumed_poses(consumed))
+                    i += consumed
+                    if consumed == chunk or (consumed > 0
+                                             and t.state == "OK"):
+                        continue    # full chunk, or mid-chunk KF event
+                    # mid-chunk failure: fall through to per-frame path
+            poses.append(self.track_monocular(images[i],
+                                              timestamp=timestamps[i]))
+            i += 1
+        return poses
+
+    def _track_batch_pipelined(self, images, timestamps, chunk):
+        """Double-buffered chunk pipeline (async-mapping mode).
+
+        Invariants: at most one chunk in flight beyond the one being
+        processed; frame-id assignment advances at dispatch and REWINDS
+        on a mid-chunk tracking failure (the prefetched chunk's results
+        are discarded and its frames re-enter the per-frame path); the
+        device bundle refresh never drains the pipeline — it chains after
+        the chunk in flight on the tracking stream."""
+        t = self.tracking
+        fe = t.fused
+        s = self.store
+        n = len(images)
+        poses: list = []
+        i = 0
+        pending = None      # (start_i, base_fid, count, handle, ts_slice)
+
+        def can_rebuild():
+            # one consistent snapshot vs the worker's atomic publish of
+            # (ref_kf, last_kf_frame_id, last_frame) under store.lock
+            with s.lock:
+                lf = t.last_frame
+                return (lf is not None and lf.R is not None
+                        and t.ref_kf >= 0 and s.kf_valid[t.ref_kf])
+
+        def refresh_if_stale():
+            with s.lock:
+                if not fe.ready() and t.ref_kf >= 0 \
+                        and s.kf_valid[t.ref_kf]:
+                    fe.refresh_bundle_device(t.ref_kf)
+
+        def dispatch(at):
+            base = self._next_frame_id
+            handle = fe.dispatch_chunk(np.stack(images[at:at + chunk]))
+            self._next_frame_id = base + chunk
+            return (at, base, chunk, handle, timestamps[at:at + chunk])
+
+        while i < n or pending is not None:
+            if pending is None:
+                can = t.state == "OK" and n - i >= chunk
+                if can and fe.state is None and can_rebuild():
+                    with s.lock:
+                        self._rebuild_from_last_frame()
+                elif can and fe.state is not None:
+                    refresh_if_stale()
+                if can and fe.state is not None:
+                    pending = dispatch(i)
+                    i += chunk
+                    continue
+                poses.append(self.track_monocular(
+                    images[i], timestamp=timestamps[i]))
+                i += 1
+                continue
+
+            # prefetch the next chunk; refresh BEFORE the prefetch dispatch
+            # whenever the mapper published: refreshing only after record
+            # processing makes the new map effective TWO chunks late, and a
+            # fast sweep outruns it
+            nxt = None
+            if n - i >= chunk:
+                refresh_if_stale()
+                nxt = dispatch(i)
+                i += chunk
+
+            start_p, base_p, cnt_p, handle_p, ts_p = pending
+            t0 = time.perf_counter()
+            recs = fe.collect_chunk(handle_p)
+            ms = (time.perf_counter() - t0) * 1e3 / cnt_p
+            epoch0 = fe._bundle_epoch
+            consumed = t.track_fused_chunk_async(
+                recs, ts_p, base_p, ms_per_frame=ms)
+            poses.extend(self._consumed_poses(consumed))
+            if consumed < cnt_p:
+                # tracking failed mid-chunk (or a hard keyframe broke it):
+                # discard the prefetched chunk (its device state mutations
+                # die with the rebuild) and re-enter the per-frame path at
+                # that frame
+                self._next_frame_id = base_p + consumed
+                i = start_p + consumed
+                pending = None
+                continue
+            if fe._bundle_epoch != epoch0 and nxt is not None:
+                # a HARD keyframe event rebuilt the device bundle while
+                # the prefetched chunk was in flight: that chunk rode the
+                # PRE-rebuild map mid-collapse. Discard it and re-dispatch
+                # against the fresh bundle.
+                self._next_frame_id = nxt[1]
+                i = nxt[0]
+                nxt = None
+            # mapping wrote since this bundle was built: swap in the
+            # current map (device-side, chains after the chunk in flight)
+            refresh_if_stale()
+            pending = nxt
+        return poses
+
+    def precompile(self, n_frames=40):
+        """Build every kernel, warm every device code path and capture
+        every CUDA graph the live system can hit, ON THE CALLING THREAD,
+        before the mapping worker does any device work.
+
+        Why: the first call of a torch operator loads its CUDA module and
+        may allocate or synchronise; the Hamming kernel is compiled by nvcc
+        at its first use; a graph capture must not meet either, nor an
+        allocation racing in from the worker's stream. After this runs the
+        steady state replays graphs only (``compiles_after_warmup`` reads
+        0).
+
+        Strategy: drive a THROWAWAY synchronous twin system through a
+        short synthetic sequence (the frontend, the initializer, the fused
+        chunk and per-frame steps, the whole mapping stage), touch the
+        async-only paths with dummy-shaped calls (the pipelined device
+        refresh, the deferred-keyframe pose re-alignment), then capture
+        this system's own frame step. Legs of the JAX package's precompile
+        that wait for unported modules (loop closer, vocabulary assignment,
+        pose graph, global BA, relocalizer) are left out; ROADMAP.md lists
+        them under those modules."""
+        from ..data import synthetic
+        from .tracking import _bound_pose_opt
+
+        cfg = copy.copy(self.cfg)
+        cfg.async_mapping = False
+        twin = SlamSystem(self.cam, cfg, device=self.device, seed=self.seed)
+        imgs, _, _ = synthetic.render_plane_sequence(
+            self.cam, n_frames=n_frames, seed=123, motion=0.45)
+        twin.track_monocular_batch(
+            list(imgs), timestamps=[i / 30.0 for i in range(n_frames)],
+            chunk=8)
+        # per-frame fused step
+        twin.track_monocular(imgs[-1], timestamp=n_frames / 30.0)
+        fe = twin.tracking.fused
+        if fe is not None and fe.state is not None \
+                and twin.tracking.ref_kf >= 0:
+            with twin.store.lock:
+                fe.refresh_bundle_device(twin.tracking.ref_kf)
+        # deferred/hard keyframe pose re-alignment: async-only, so the
+        # synchronous twin never runs it
+        P = self.cfg.tracking.max_kp
+        dev = self.device
+        _bound_pose_opt(
+            self.cam, torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            torch.zeros((P, 3), device=dev), torch.zeros((P, 2), device=dev),
+            torch.zeros(P, dtype=torch.int32, device=dev),
+            torch.zeros(P, dtype=torch.bool, device=dev))
+        # the per-frame (non-fused) stages: the live system falls back to
+        # them on any tracking failure
+        t = twin.tracking
+        t.fused = None
+        for j in range(2):       # motion-model path (static camera: OK)
+            twin.track_monocular(imgs[-1],
+                                 timestamp=(n_frames + 1 + j) / 30.0)
+        t.velocity = None        # forces the reference-keyframe fallback
+        twin.track_monocular(imgs[-1], timestamp=(n_frames + 3) / 30.0)
+        twin.shutdown()
+        del twin, fe
+        if self.tracking.fused is not None:
+            self.tracking.fused.warm()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.captures_at_warmup = self.n_captures
+
+    @property
+    def n_captures(self) -> int:
+        """CUDA graphs captured so far (0 on the CPU)."""
+        fe = self.tracking.fused
+        return 0 if fe is None else fe.n_captures
+
+    @property
+    def captures_after_warmup(self):
+        """Graphs captured since precompile(): the port's counterpart of
+        the JAX bench's ``compiles_after_warmup``. None before precompile."""
+        if self.captures_at_warmup is None:
+            return None
+        return self.n_captures - self.captures_at_warmup
 
     def reset(self):
         """Parity: System::Reset."""
         self.tracking.reset()
 
     def shutdown(self):
-        """Parity: System::Shutdown. Mapping runs synchronously, so there is
-        no worker to join; waits for the device's queued work."""
+        """Parity: System::Shutdown — joins the mapping worker (raising
+        what it died of, if it did) and waits for the device's queued
+        work."""
+        am = self.tracking.async_mapper
+        if am is not None:
+            am.join()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

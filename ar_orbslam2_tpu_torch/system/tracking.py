@@ -1,28 +1,35 @@
 """Tracking front end — the per-frame state machine.
 
-Port of the per-frame path of ar_orbslam2_tpu/system/tracking.py (the
-reference's Tracking::Track): the state machine (NOT_INITIALIZED -> OK ->
-LOST) and the keyframe decision live on the host; every numeric stage —
-projective search, motion-only BA, local-map search — is a torch function
-on the system's device, read back once per stage.
+Port of ar_orbslam2_tpu/system/tracking.py (the reference's
+Tracking::Track): the state machine (NOT_INITIALIZED -> OK -> LOST) and the
+keyframe decision live on the host; every numeric stage — projective
+search, motion-only BA, local-map search — is a torch function on the
+system's device. The per-frame path reads back once per stage; the fused
+path (system/fused.py) reads back one record per frame, or per chunk.
 
 Per frame: predict pose (velocity model) -> SearchByProjection vs the last
 frame's landmarks -> PoseOptimization (reference-KF brute-force fallback)
 -> TrackLocalMap (covisibility expansion + SearchLocalPoints +
 PoseOptimization) -> inlier gates -> keyframe decision -> LocalMapper.
 
-Not ported in this slice: the fused/chunked device path, the async mapper,
-relocalization, loop closing, localization mode and stereo/RGB-D (see
-ROADMAP.md). Without a relocalizer a failed frame goes LOST, as it does in
-the JAX package with relocalization disabled.
+Fused paths: ``track_fused`` (one frame), ``track_fused_chunk`` (a chunk,
+synchronous mapping) and ``track_fused_chunk_async`` (records of a chunk
+collected by the pipelined caller, mapping on the worker thread: soft and
+hard keyframe tiers, peak-frame choice, the LOST-vs-rescue branch).
+
+Not ported yet: relocalization, loop closing, localization mode and
+stereo/RGB-D (see ROADMAP.md). Without a relocalizer a failed frame goes
+LOST, as it does in the JAX package with relocalization disabled.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..estimation.initializer import initialize_two_view
 from ..estimation.pose_opt import pose_optimization_compact
 from ..matching import matcher
@@ -105,6 +112,18 @@ def _local_map_track(cam, R0, t0, mp_pos, mp_desc, mp_normal, mp_dmin,
     return R, t, n_inl, kp_match, visible, inlier
 
 
+@torch.no_grad()
+def _bound_pose_opt(cam, R0, t0, xw, uv, oct_, valid):
+    """Motion-only BA on FIXED keypoint->landmark bindings (no search).
+    Used to re-align a deferred keyframe's pose to the live map: its
+    chi2-inlier associations are trusted, only the landmark positions
+    may have moved under the concurrent mapper BA."""
+    res = pose_optimization_compact(R0, t0, xw, uv, oct_, valid, cam,
+                                    uv.shape[0])
+    inl = res["inlier"] & valid
+    return res["R"], res["t"], inl.to(torch.int32).sum(), inl
+
+
 def _init_match(uv1, desc1, valid1, angles1, uv2, desc2, valid2, angles2):
     return matcher.search_for_initialization(
         uv1, desc1, valid1, uv2, desc2, valid2,
@@ -126,18 +145,36 @@ def _inverse(R, t):
     return Rt, -(Rt @ t)
 
 
+class _FrameShim:
+    """Lightweight stand-in for a Frame in fused-mode metrics records —
+    carries exactly what _record/_need_new_keyframe touch, so ordinary
+    frames never materialize their device arrays."""
+
+    def __init__(self, frame_id, timestamp, R, t):
+        self.frame_id = frame_id
+        self.timestamp = timestamp
+        self.R = R
+        self.t = t
+        self.ref_kf = -1
+        self.R_cr = None
+        self.t_cr = None
+
+
 class Tracking:
     """Host state machine driving the per-frame device stages."""
 
     def __init__(self, store, local_mapper, cam,
-                 cfg: TrackingConfig = TrackingConfig(), device="cpu",
+                 cfg: TrackingConfig = TrackingConfig(), device=None,
                  seed=0):
         self.store = store
         self.mapper = local_mapper
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.seed = seed                    # RANSAC draw of each init attempt
+        self.fused = None                   # FusedFrontend (image mono path)
+        self.async_mapper = None            # AsyncMapper (mapping thread)
+        self.only_tracking = False          # localization mode: not ported
         self.state = NOT_INITIALIZED
         self.last_frame: Frame | None = None
         self.velocity = None                # (R, t) of T_cur * T_last^-1
@@ -146,6 +183,13 @@ class Tracking:
         self.last_reloc_frame_id = -1_000_000
         self.init_frame: Frame | None = None
         self.metrics: list[dict] = []
+        self.last_rel = None      # (R_cr, t_cr, ref_kf) of last OK frame
+        self._inl_peak = 0.0      # max inliers SINCE LAST KF (c2_live ref)
+        self._inl_decay = 0.0     # decaying peak, survives KF inserts
+        #                           (hard-decline barrier reference)
+        self._low_streak = 0      # consecutive sub-threshold frames
+        self._fused_prev_pose = None
+        self._dbg_submit_ms = None
         self.n_resets = 0
         self._dbg: dict = {}     # per-frame stage diagnostics -> metrics
         # device-resident local-map bundle, cached on (map version, KF set)
@@ -198,6 +242,420 @@ class Tracking:
         return rec
 
     # ------------------------------------------------------------------
+    # fused device-resident steady-state path (system/fused.py)
+    # ------------------------------------------------------------------
+    def _gate(self, frame_id) -> int:
+        cfg = self.cfg
+        return cfg.min_inliers_reloc if (
+            frame_id - self.last_reloc_frame_id
+            < cfg.max_frames_between_kf) else cfg.min_inliers_local
+
+    def _rebuild_on_keyframe(self, kf):
+        """Fresh device bundle anchored at keyframe `kf`. The rebuild
+        deliberately DROPS the velocity model: have_vel=False routes the
+        next frame through the brute-force fallback — a full
+        re-acquisition against the fresh bundle that resets any
+        accumulated windowed-search drift."""
+        s = self.store
+        self.fused.rebuild(kf, s.kf_mp[kf], s.kf_R[kf], s.kf_t[kf])
+        self._fused_prev_pose = (s.kf_R[kf].copy(), s.kf_t[kf].copy())
+
+    def track_fused(self, image_u8, timestamp, frame_id) -> dict:
+        """One OK-state frame via the fused megastep: one frame step on the
+        device, one record readback. Falls back to the per-frame path
+        (materializing the frame once, in one batched readback) on
+        tracking failure or keyframe events."""
+        fe = self.fused
+        t0 = time.perf_counter()
+        dev = fe.step(fe.extract(image_u8))
+        t_step = time.perf_counter() - t0
+        n_inl = int(dev["n_inliers"])
+        ok = bool(dev["pre_ok"]) and n_inl >= self._gate(frame_id)
+        self._dbg.update(
+            motion_matches=int(dev["motion_matches"]),
+            motion_inliers=int(dev["motion_inliers"]),
+            fb_used=bool(dev["fb_ok"] and not dev["motion_ok"]),
+            local_inliers=n_inl, local_visible=int(dev["n_visible"]),
+            fused=True, t_track_ms=round(t_step * 1e3, 2))
+        if not ok:
+            # one batched readback -> per-frame LOST handling
+            frame = fe.materialize_frame(timestamp, frame_id)
+            fe.invalidate()
+            self.state = LOST
+            self.velocity = None
+            return self.track(frame)
+
+        self.state = OK
+        R, t = dev["R"], dev["t"]
+        if self._fused_prev_pose is not None:
+            R_l, t_l = self._fused_prev_pose
+            Rv = R @ R_l.T
+            self.velocity = (Rv, t - Rv @ t_l)
+        self._fused_prev_pose = (R, t)
+
+        shim = _FrameShim(frame_id, timestamp, R, t)
+        if self._need_new_keyframe(shim, n_inl):
+            t1 = time.perf_counter()
+            frame = fe.materialize_frame(timestamp, frame_id)
+            self._create_keyframe(frame)
+            # post-BA pose of the new KF anchors the next frame
+            self._rebuild_on_keyframe(self.ref_kf)
+            self.last_frame = frame
+            shim.R, shim.t = frame.R, frame.t
+            self._dbg["t_kf_ms"] = round(
+                (time.perf_counter() - t1) * 1e3, 2)
+        return self._record(shim, ok_flag=True, n_inliers=n_inl)
+
+    def _record_chunk_frame(self, recs, c, fid, timestamp, ms_per_frame):
+        """Record frame c of a chunk's stacked records. Returns
+        (shim, n_inliers)."""
+        n_inl = int(recs["n_inliers"][c])
+        R = np.asarray(recs["R"][c])
+        t = np.asarray(recs["t"][c])
+        shim = _FrameShim(fid, timestamp, R, t)
+        self._dbg = dict(
+            motion_matches=int(recs["motion_matches"][c]),
+            motion_inliers=int(recs["motion_inliers"][c]),
+            fb_used=bool(recs["fb_ok"][c] and not recs["motion_ok"][c]),
+            local_inliers=n_inl,
+            local_visible=int(recs["n_visible"][c]),
+            fused=True, chunked=True,
+            t_track_ms=round(ms_per_frame, 2))
+        self._record(shim, ok_flag=True, n_inliers=n_inl)
+        self._fused_prev_pose = (R, t)
+        return shim, n_inl
+
+    def _chunk_velocity(self, recs, consumed):
+        if consumed >= 2:
+            R1, t1 = self._fused_prev_pose
+            R0 = np.asarray(recs["R"][consumed - 2])
+            t0 = np.asarray(recs["t"][consumed - 2])
+            Rv = R1 @ R0.T
+            self.velocity = (Rv, t1 - Rv @ t0)
+
+    def track_fused_chunk(self, images, timestamps, base_frame_id) -> int:
+        """Throughput mode: one dispatch for a whole image chunk.
+
+        Per-frame gates and the keyframe decision are applied AFTER the
+        chunk from the stacked records (the reference's asynchronous
+        mapper has the same map-update latency). Returns the number of
+        frames consumed from the chunk start; on a mid-chunk tracking
+        failure the remaining frames are left for the caller's per-frame
+        path and the state machine goes LOST.
+        """
+        fe = self.fused
+        C = len(images)
+        t0 = time.perf_counter()
+        recs = fe.step_chunk(images)
+        ms_per_frame = (time.perf_counter() - t0) * 1e3 / C
+
+        consumed = 0
+        kf_at = -1
+        for c in range(C):
+            fid = base_frame_id + c
+            ok = bool(recs["pre_ok"][c]) and \
+                int(recs["n_inliers"][c]) >= self._gate(fid)
+            if not ok:
+                break
+            shim, n_inl = self._record_chunk_frame(
+                recs, c, fid, timestamps[c], ms_per_frame)
+            consumed += 1
+            # parity: keyframes are only accepted while the mapping stage
+            # is idle (LocalMapping::SetAcceptKeyFrames)
+            accept_kf = not self.only_tracking and (
+                self.async_mapper is None or not self.async_mapper.busy())
+            if accept_kf and self._need_new_keyframe(shim, n_inl):
+                # adaptive consumption: stop HERE, promote THIS frame to
+                # a keyframe from its on-device snapshot; the rest of the
+                # chunk re-enters against the updated map
+                kf_at = c
+                break
+
+        self._chunk_velocity(recs, consumed)
+
+        if kf_at < 0 and consumed < C:
+            # mid-chunk failure: frames before it are committed, the rest
+            # re-enter through the per-frame path
+            fe.invalidate()
+            self.state = LOST
+            self.velocity = None
+            return consumed
+
+        if kf_at >= 0:
+            t1 = time.perf_counter()
+            frame = fe.materialize_chunk_frame(
+                kf_at, timestamps[kf_at], base_frame_id + kf_at)
+            if self.async_mapper is not None:
+                # insert the keyframe synchronously (cheap store writes),
+                # hand the mapping stage to the worker, and KEEP TRACKING
+                # on the current device bundle; the bundle refreshes at
+                # a later chunk boundary once the mapper is idle
+                kf = self._insert_keyframe(frame)
+                self.async_mapper.submit(kf)
+                self.last_frame = frame
+            else:
+                self._create_keyframe(frame)
+                self._rebuild_on_keyframe(self.ref_kf)
+                self.last_frame = frame
+            if self.metrics:
+                self.metrics[-1]["t_kf_ms"] = round(
+                    (time.perf_counter() - t1) * 1e3, 2)
+        return consumed
+
+    def track_fused_chunk_async(self, recs, timestamps, base_frame_id,
+                                ms_per_frame=0.0) -> int:
+        """Pipelined-mode record processing for an ALREADY-collected chunk
+        (async mapping): the caller dispatched the next chunk before
+        collecting this one, so a keyframe event does NOT stop the chunk —
+        the remaining frames rode the same bundle (exactly the
+        reference's tracking/mapping thread latency). The FIRST keyframe
+        candidate (mapper idle) is materialized from the on-device
+        snapshot, inserted, and handed to the mapping worker.
+
+        Keyframe handling has two tiers:
+          * SOFT trigger (NeedNewKeyFrame fires while inliers are still
+            healthy): the whole event runs on the worker and the device
+            bundle is swapped in by the pipelined refresh.
+          * HARD decline (inliers fall below 0.45x the decayed peak — the
+            scene is outrunning the frozen bundle): the chunk BREAKS at
+            that frame, the KF is inserted, triangulate + fuse run to
+            completion (barrier), and the bundle is rebuilt before
+            chunking resumes.
+
+        Returns the number of frames consumed; < C means the caller must
+        discard any prefetched chunk and re-enter at that index (state
+        stays OK after a hard-KF barrier; LOST on a tracking failure).
+        """
+        fe, cfg = self.fused, self.cfg
+        C = len(timestamps)
+        consumed = 0
+        kf_list: list[int] = []
+        vref = None      # virtual n_ref after an in-chunk KF decision
+        hard = False
+        kf_fid_before = self.last_kf_frame_id
+        for c in range(C):
+            fid = base_frame_id + c
+            ok = bool(recs["pre_ok"][c]) and \
+                int(recs["n_inliers"][c]) >= self._gate(fid)
+            if not ok:
+                break
+            shim, n_inl = self._record_chunk_frame(
+                recs, c, fid, timestamps[c], ms_per_frame)
+            consumed += 1
+            # keyframe cadence must match the per-frame path. After an
+            # in-chunk decision the store's n_ref is stale, so later
+            # frames compare against the VIRTUAL reference count — the
+            # inlier count at the last decision.
+            accept_kf = not self.only_tracking and (
+                self.async_mapper is None
+                or self.async_mapper.queue_idle())
+            if vref is None:
+                need = self._need_new_keyframe(shim, n_inl)
+            else:
+                need = (n_inl < cfg.kf_ref_ratio * vref
+                        and n_inl > cfg.min_matches_new_kf)
+            if accept_kf and need and len(kf_list) < 1:
+                kf_list.append(c)
+                vref = n_inl
+                self.last_kf_frame_id = fid
+            # hard decline: break the chunk and rebuild behind a mapping
+            # barrier. Reference level = the DECAYING peak (_inl_decay),
+            # which survives worker-side KF inserts. Two guards keep it a
+            # LOSS RESCUE, not a churn source: the absolute 4x-gate cap
+            # and a 2-frame streak.
+            low = (not self.only_tracking and self.store.n_keyframes() > 2
+                   and self._inl_decay >= 4 * cfg.min_inliers_local
+                   and n_inl < 0.45 * self._inl_decay
+                   and n_inl < 4 * cfg.min_inliers_local)
+            self._low_streak = self._low_streak + 1 if low else 0
+            if low and self._low_streak >= 2:
+                hard = True
+                if not kf_list or kf_list[-1] != c:
+                    kf_list.append(c)
+                    self.last_kf_frame_id = fid
+                break
+
+        self._chunk_velocity(recs, consumed)
+
+        if consumed < C and not hard:
+            # A frozen-bundle outrun can kill pre_ok within ONE chunk. If
+            # the scene was healthy a few frames ago this is an outrun,
+            # not a visual loss: run the hard-KF rescue (peak-frame KF +
+            # mapping barrier + bundle rebuild) and re-enter against the
+            # extended map instead of going LOST.
+            if (not self.only_tracking and self.store.n_keyframes() > 2
+                    and consumed > 0
+                    and self._inl_decay >= 4 * cfg.min_inliers_local):
+                hard = True
+                if not kf_list or kf_list[-1] != consumed - 1:
+                    kf_list.append(consumed - 1)
+            else:
+                fe.invalidate()
+                self.state = LOST
+                self.velocity = None
+                return consumed
+
+        if kf_list:
+            t1 = time.perf_counter()
+            # anchor snapshot for re-anchoring the new KF's pose from the
+            # bundle-snapshot frame into the CURRENT map frame (async BA
+            # may have moved the anchor): T_new = T_rel * T_anchor_now
+            if fe.rec_anchor is not None:
+                anchor_info = fe.rec_anchor
+            else:
+                anchor_info = (fe.anchor_kf, fe.anchor_R, fe.anchor_t)
+            # on a hard break insert the HEALTHIEST frame since the last
+            # KF decision, not the collapse frame: the peak frame holds
+            # nearly the same forward coverage with a sound pose; the
+            # break frame itself re-enters the per-frame path against the
+            # rebuilt bundle (caller re-enters at `consumed`).
+            if hard:
+                lo = kf_list[0] + 1 if len(kf_list) > 1 else 0
+                inl_win = np.asarray(recs["n_inliers"][lo:consumed])
+                kf_at = (lo + int(np.argmax(inl_win))) if len(inl_win) \
+                    else kf_list[-1]
+            else:
+                kf_at = kf_list[0]
+            am = self.async_mapper
+            if am is not None and not hard:
+                # SOFT keyframe: the ENTIRE event (snapshot readback +
+                # insert + mapping) runs on the worker — the materialize
+                # readback queues behind the chunk in flight, and the
+                # tracking thread must not block on it
+                snaps, done = fe._chunk_snaps, fe._chunk_done
+                # ids table matching THIS chunk's snapshots (a pipelined
+                # refresh may have swapped the live bundle_ids since)
+                ids = fe.rec_ids if fe.rec_ids is not None \
+                    else fe.bundle_ids
+                ts_kf = timestamps[kf_at]
+                fid_kf = base_frame_id + kf_at
+                t_sub = time.perf_counter()
+                am.submit_task(lambda: self._deferred_kf_insert(
+                    snaps, kf_at, ts_kf, fid_kf, ids, anchor_info,
+                    done=done, kf_fid_before=kf_fid_before))
+                self._dbg_submit_ms = round(
+                    (time.perf_counter() - t_sub) * 1e3, 2)
+            else:
+                if am is not None and hard:
+                    # barrier FIRST: the live re-track below must see
+                    # the worker's completed map writes
+                    am.join()
+                frame = fe.materialize_chunk_frame(
+                    kf_at, timestamps[kf_at], base_frame_id + kf_at)
+                self._reanchor_frame(frame, anchor_info)
+                if hard:
+                    # re-align the pose to the live map on the frame's
+                    # own bindings before insertion. Insert even if few
+                    # inliers survive — a hard KF's forward coverage is
+                    # what rescues the next chunk.
+                    self._refresh_kf_pose(frame)
+                kf = self._insert_keyframe(frame)
+                if am is not None and hard:
+                    # run ONLY the coverage-critical stages (triangulate
+                    # + fuse) here; local BA goes back to the worker —
+                    # the next chunk needs new LANDMARKS, not BA polish
+                    self.mapper.process_keyframe(kf, do_ba=False)
+                    am.submit_task(lambda: self._finish_kf_async(kf))
+                elif am is not None:
+                    am.submit(kf)
+                else:
+                    self.mapper.process_keyframe(kf)
+                self.last_frame = frame
+                if hard and self.store.kf_valid[kf]:
+                    # the next chunk must see the extended map; no
+                    # velocity -> brute-force re-acquisition (drift reset)
+                    with self.store.lock:
+                        self._rebuild_on_keyframe(kf)
+            if self.metrics:
+                self.metrics[-1]["t_kf_ms"] = round(
+                    (time.perf_counter() - t1) * 1e3, 2)
+                self.metrics[-1]["kf_hard"] = hard
+                if self._dbg_submit_ms is not None:
+                    self.metrics[-1]["t_kf_submit_ms"] = self._dbg_submit_ms
+                    self._dbg_submit_ms = None
+        return consumed
+
+    def _refresh_kf_pose(self, frame) -> int:
+        """Re-optimize a deferred/hard keyframe's pose against the LIVE
+        positions of its own bindings before insertion.
+
+        The pipelined snapshot's pose was tracked against a bundle up to
+        two chunks stale; the rigid reanchor corrects the ANCHOR's
+        motion but not the non-rigid part of the mapper's BA updates.
+        This trusts the snapshot's chi2-inlier associations and re-runs
+        motion-only BA with the landmark positions read from the store
+        NOW (under the store lock: the mapping worker writes them).
+        Outlier bindings are pruned; the pose is updated only when enough
+        inliers survive. Returns the surviving inlier count."""
+        s = self.store
+        mp = frame.mp
+        bound = mp >= 0
+        if int(bound.sum()) < 10:
+            return 0
+        with s.lock:
+            xw = np.where(bound[:, None], s.mp_pos[np.maximum(mp, 0)],
+                          0.0).astype(np.float32)
+        R, t, n_inl, inl = _host(*_bound_pose_opt(
+            self.cam, self._t(frame.R), self._t(frame.t), self._t(xw),
+            frame.dev("uv"), frame.dev("octave"), self._t(bound)))
+        n_inl = int(n_inl)
+        if n_inl >= self.cfg.min_inliers_local:
+            frame.set_pose(R, t)
+            frame.mp[:] = np.where(inl, mp, -1)
+        return n_inl
+
+    def _reanchor_frame(self, frame, anchor_info):
+        """Rigidly move a snapshot-frame pose into the current map frame."""
+        anchor, a_R, a_t = anchor_info
+        if anchor >= 0 and self.store.kf_valid[anchor]:
+            R_cr = frame.R @ a_R.T
+            t_cr = frame.t - R_cr @ a_t
+            with self.store.lock:
+                frame.set_pose(
+                    R_cr @ self.store.kf_R[anchor],
+                    R_cr @ self.store.kf_t[anchor] + t_cr)
+
+    def _finish_kf_async(self, kf):
+        """Worker-side tail of a HARD keyframe event: the BA stage
+        deferred out of the barrier. Returns None so the worker does not
+        run process_keyframe again."""
+        if self.store.kf_valid[kf]:
+            self.mapper.local_bundle_adjustment(kf)
+            self.mapper.cull_keyframes(kf)
+        return None
+
+    def _deferred_kf_insert(self, snaps, j, timestamp, frame_id,
+                            bundle_ids, anchor_info, done=None,
+                            kf_fid_before=None):
+        """Worker-side half of a SOFT keyframe event (see submit_task).
+
+        last_frame is published under store.lock together with the
+        ref_kf/last_kf_frame_id writes inside _insert_keyframe, so the
+        tracking thread's rebuild gating never observes a torn
+        (new ref_kf, old last_frame) pair."""
+        frame = self.fused.materialize_from(snaps, j, timestamp, frame_id,
+                                            bundle_ids, done=done)
+        self._reanchor_frame(frame, anchor_info)
+        # Re-align the pose to the LIVE map before insertion (parity: the
+        # reference's tracking thread always optimizes against the current
+        # map under mMutexMapUpdate). A candidate whose bindings cannot
+        # re-converge on the live map is dropped: mid-collapse garbage is
+        # exactly what the decline/hard triggers will replace with a fresh
+        # candidate.
+        if self._refresh_kf_pose(frame) < self.cfg.min_inliers_local:
+            # the decision stamped last_kf_frame_id for a keyframe that
+            # will not exist: give the time trigger its old base back
+            with self.store.lock:
+                if kf_fid_before is not None \
+                        and self.last_kf_frame_id == frame_id:
+                    self.last_kf_frame_id = kf_fid_before
+            return None
+        with self.store.lock:       # RLock: one atomic publish with the
+            kf = self._insert_keyframe(frame, record_dbg=False)
+            self.last_frame = frame  # ref_kf/last_kf_frame_id writes
+        return kf
+
+    # ------------------------------------------------------------------
     def _record(self, frame, ok_flag, n_inliers):
         rec = dict(frame_id=frame.frame_id, timestamp=frame.timestamp,
                    state=self.state, ok=bool(ok_flag),
@@ -205,22 +663,52 @@ class Tracking:
                    n_kf=self.store.n_keyframes(),
                    n_mp=self.store.n_map_points(),
                    **self._dbg)
+        # max inlier count SINCE THE LAST KEYFRAME INSERT — the live
+        # "reference matches" level the KF triggers compare against
+        # (reset to 0 by _insert_keyframe / on tracking failure); the
+        # decaying peak survives KF inserts (a mid-collapse insert must
+        # not blind the hard-decline barrier)
+        if ok_flag:
+            self._inl_peak = max(self._inl_peak, float(n_inliers))
+            self._inl_decay = max(self._inl_decay * 0.95, float(n_inliers))
+        else:
+            self._inl_peak = 0.0
+            self._inl_decay = 0.0
         self._dbg = {}
         if frame.R is not None:
             rec["R"] = frame.R.copy()
             rec["t"] = frame.t.copy()
             # pose relative to the reference KF at track time, so the final
             # trajectory benefits from later BA refinement of the KF
-            # (parity: mlRelativeFramePoses in SaveTrajectoryTUM)
+            # (parity: mlRelativeFramePoses in SaveTrajectoryTUM). Fused
+            # frames anchor to the BUNDLE's anchor KF at its SNAPSHOT
+            # pose: the tracked pose lives in the snapshot's map frame,
+            # and async BA may have moved the KF since.
+            fe = self.fused
+            use_snap = (rec.get("fused") and fe is not None
+                        and fe.state is not None and fe.anchor_kf >= 0)
             ref = self.ref_kf
-            rec["ref_kf"] = ref
-            if ref >= 0:
-                with self.store.lock:
+            if use_snap:
+                # chunked records use the anchor captured at the chunk's
+                # DISPATCH (a pipelined device-side refresh may have
+                # swapped the live anchor since)
+                if fe.rec_anchor is not None:
+                    ref, R_rw, t_rw = fe.rec_anchor
+                else:
+                    ref = fe.anchor_kf
+                    R_rw, t_rw = fe.anchor_R, fe.anchor_t
+            elif ref >= 0:
+                with self.store.lock:   # vs async mapper write-backs
                     R_rw = self.store.kf_R[ref].copy()
                     t_rw = self.store.kf_t[ref].copy()
+            rec["ref_kf"] = ref
+            if ref >= 0:
                 R_cr = frame.R @ R_rw.T
                 rec["R_cr"] = R_cr
                 rec["t_cr"] = frame.t - R_cr @ t_rw
+                # last frame's KF-relative pose: lets the fused bundle
+                # refresh RE-ANCHOR the tracked pose to the post-BA map
+                self.last_rel = (R_cr, rec["t_cr"], ref)
                 # anchor the frame to its reference KF so UpdateLastFrame
                 # can re-compose against the KF's post-BA pose
                 frame.ref_kf = ref
@@ -479,6 +967,8 @@ class Tracking:
         """Parity: Tracking::NeedNewKeyFrame (monocular): a time trigger
         (c1a/c1b) AND the tracked-vs-reference condition c2."""
         cfg, s = self.cfg, self.store
+        if self.only_tracking:
+            return False
         if frame.frame_id - self.last_reloc_frame_id \
                 < cfg.max_frames_between_kf \
                 and s.n_keyframes() > cfg.max_frames_between_kf:
@@ -494,10 +984,24 @@ class Tracking:
         c1b = fid >= self.last_kf_frame_id + cfg.min_frames_between_kf
         c2 = (n_inliers < cfg.kf_ref_ratio * n_ref
               and n_inliers > cfg.min_matches_new_kf)
+        if isinstance(frame, _FrameShim):
+            # Fused path: ref_kf is PINNED to the last-created KF between
+            # keyframe events (the per-frame path re-elects it per frame to
+            # the max-covisible KF), so raw n_ref is unrepresentative in
+            # both directions. The honest reference level is the MAX INLIER
+            # COUNT SINCE THE LAST KF INSERT (self._inl_peak): c2's 0.9
+            # ratio against it fires 10% into a decline, while the pose is
+            # still healthy. The 4x-min floor keeps Poisson noise under the
+            # 10% threshold; below it only the time trigger fires.
+            c2_live = (self._inl_peak >= 4 * cfg.min_inliers_local
+                       and n_inliers < cfg.kf_ref_ratio * self._inl_peak
+                       and n_inliers > cfg.min_matches_new_kf)
+            return bool((c1a and c2) or c2_live)
         return bool((c1a or c1b) and c2)
 
-    def _insert_keyframe(self, frame: Frame) -> int:
-        """Store-side keyframe insertion (CreateNewKeyFrame's store part)."""
+    def _insert_keyframe(self, frame: Frame, record_dbg: bool = True) -> int:
+        """Store-side keyframe insertion (cheap, synchronous): the part of
+        CreateNewKeyFrame that must happen on the inserting thread."""
         s = self.store
         with s.lock:
             kf = s.add_keyframe(frame.R, frame.t, frame.uv,
@@ -508,9 +1012,15 @@ class Tracking:
             mps = frame.mp[feats]
             live = s.mp_valid[mps]
             s.add_observations(mps[live], kf, feats[live])
+            # publish ref_kf/last_kf_frame_id INSIDE the store lock: the
+            # deferred (worker-thread) insert otherwise exposes a torn
+            # trio to the tracking thread's rebuild/cadence reads
             self.ref_kf = kf
             self.last_kf_frame_id = frame.frame_id
-        self._dbg["new_kf"] = kf
+            # new reference window for the live KF triggers
+            self._inl_peak = 0.0
+        if record_dbg:      # worker-thread inserts must not touch _dbg
+            self._dbg["new_kf"] = kf
         return kf
 
     def _create_keyframe(self, frame: Frame):
@@ -526,10 +1036,23 @@ class Tracking:
     # ------------------------------------------------------------------
     def reset(self):
         """Parity: Tracking::Reset — clear map + state, restart init."""
+        if self.async_mapper is not None:      # drain in-flight mapping
+            try:
+                self.async_mapper.join()
+            except RuntimeError:
+                pass
         s = self.store
         s.__init__(s.cfg)
         self.mapper.recent.clear()
         self._local_bundle_cache = None
+        if self.fused is not None:      # drop device state (map is gone)
+            self.fused.state = None
+            self.fused.version = -1
+        self._fused_prev_pose = None
+        self.last_rel = None
+        self._inl_peak = 0.0
+        self._inl_decay = 0.0
+        self._low_streak = 0
         self.state = NOT_INITIALIZED
         self.velocity = None
         self.ref_kf = -1

@@ -17,10 +17,34 @@ non-zero before the final line):
                 of both (calls queued behind a sleep kernel, CUDA events) and
                 the time a caller waits for one call;
   4. main     — the 640x480 monocular sequence through
-                SlamSystem.track_monocular_batch on the card: state OK,
-                >= 90% of frames after init tracked, >= 3 keyframes,
-                scale-aligned ATE < 0.05, and the kernel launched at least
-                once per tracked frame.
+                SlamSystem.track_monocular_batch on the card, per-frame
+                path: state OK, >= 90% of frames after init tracked, >= 3
+                keyframes, scale-aligned ATE < 0.05, and the kernel launched
+                at least once per tracked frame;
+  5. graph    — one chunk of 8 frames through the CUDA-graph runner and
+                through the same step function eagerly on the card, from the
+                same state: integer outputs equal, poses within 1e-5; the
+                graph's capture count, node count, capture and instantiate
+                times; ms/frame of the replayed chunk, of the eager chunk and
+                of the two replacements of the device branch around the
+                brute-force fallback (always compute and select; two graphs
+                around one host read);
+  6. fused    — 128 frames at 640x480 through precompile() and
+                track_monocular_batch(chunk=8) with fused tracking and async
+                mapping: state OK, >= 90% tracked, >= 3 keyframes, scale-
+                aligned ATE < 0.05 on the returned poses, on the exported
+                trajectory and on the keyframe trajectory, no reset, a
+                healthy mapping worker, no graph captured after warm-up, and
+                the kernel launched at least twice per fused frame.
+
+The kernel's `bound_ms` is the least time the card could take for the
+timed call: the larger of its bytes (every input read once, every output
+written once) over 3.35 TB/s and its operations over their peak rate — 4
+float32 operations per query-keypoint pair for the window test at 67
+TFLOP/s, and 8 population counts for each pair that passes the gates at 16
+results per clock and SM (NVIDIA's throughput table for compute capability
+9.0) on 132 SMs at the card's maximum SM clock. `bound_dense_ms` is the same
+with every pair passing.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,6 +65,15 @@ SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: far longer than queuing them
 ATE_GATE = 0.05            # tests/test_slam_image_e2e.py's image-pipeline gate
 TRACKED_SHARE_GATE = 0.90
 MIN_KEYFRAMES = 3
+PER_FRAME_FRAMES = 40      # phase 4
+FUSED_FRAMES = 128         # phase 6: 15 chunks of 8 after init
+FUSED_MOTION = 0.25        # phase 6: sweep amplitude of the camera path
+CHUNK = 8
+GRAPH_POSE_TOL = 1e-5      # graph replay vs the same step run eagerly
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12
+N_SM = 132
+POPC_PER_CLK_SM = 16
 
 
 def fail(msg):
@@ -190,33 +223,140 @@ def check_kernel(torch, CH):
         wall = {k: median_ms(torch, fns[k])
                 for k in ("wrapper", "plain_wrapper")}
         timings[(n, m)] = (dev["wrapper"], dev["plain_wrapper"])
+        if (n, m) == (4096, 1024):
+            timings["kernel_only"] = dev["kernel"]
         phase("kernel-time", shape=f"{n}x{m}",
               **{f"{k}_device_ms": f"{v:.4f}" for k, v in dev.items()},
               **{f"{k}_call_ms": f"{v:.4f}" for k, v in wall.items()},
               device_repeats=f"9x{QUEUED_CALLS}", call_repeats=REPEATS)
     ms, plain = timings[(4096, 1024)]
+    bound = kernel_bound(torch, make_inputs(torch, 4096, 1024, False, seed=7))
+    phase("kernel-bound", shape="4096x1024", **bound)
     return dict(name="hamming_top2", route="cuda",
                 source="ar_orbslam2_tpu_torch/csrc/cuda_hamming.cu",
                 replaces="ar_orbslam2_tpu/ops/pallas_hamming.py:39",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bound_dense_ms=bound["bound_dense_ms"],
+                gate_density=bound["gate_density"],
+                sm_clock_mhz=bound["sm_clock_mhz"],
+                library_ms=None,    # no single PyTorch call computes this
+                kernel_only_ms=timings["kernel_only"],
                 timed="device ms per fused_windowed_top2 call at 4096x1024,"
-                      " packed descriptors (kernel + key decode + filter)")
+                      " packed descriptors (kernel + key decode + filter);"
+                      " kernel_only_ms is the launch alone (top2_cuda)")
+
+
+def sm_clock_mhz(which="clocks.max.sm"):
+    """The card's maximum SM clock, or with "clocks.sm" the clock it runs at
+    now (read while work is queued: a step of dependent tiny kernels follows
+    the clock, and the card does not always sit at its maximum)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={which}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi {which} failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def kernel_bound(torch, x):
+    """The least time the card could take for one windowed top-2 call on
+    the inputs `x` (see the module docstring)."""
+    n, m = x["q_uv"].shape[0], x["kp_uv"].shape[0]
+    in_bytes = (n * (32 + 8 + 4 + 4 + 4 + 1) + m * (32 + 8 + 4 + 1))
+    out_bytes = 3 * n * 4 + m * 4
+    du = (x["q_uv"][:, None, 0] - x["kp_uv"][None, :, 0]).abs()
+    dv = (x["q_uv"][:, None, 1] - x["kp_uv"][None, :, 1]).abs()
+    r = x["q_radius"][:, None]
+    gate = (du <= r) & (dv <= r)
+    gate &= (x["kp_octave"][None, :] >= x["q_olo"][:, None]) \
+        & (x["kp_octave"][None, :] <= x["q_ohi"][:, None])
+    gate &= x["q_valid"][:, None] & x["kp_valid"][None, :]
+    passed = int(gate.sum())
+    clock = sm_clock_mhz()
+    popc_rate = POPC_PER_CLK_SM * N_SM * clock * 1e6
+
+    def ops_ms(pairs_popc):
+        return (n * m * 4 / FP32_FLOPS + pairs_popc * 8 / popc_rate) * 1e3
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops = ops_ms(passed)
+    return dict(bound_ms=max(bytes_ms, ops),
+                bound_by="bytes" if bytes_ms > ops else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops,
+                bound_dense_ms=max(bytes_ms, ops_ms(n * m)),
+                gate_density=passed / (n * m), sm_clock_mhz=clock)
+
+
+CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+
+
+def make_sequence(n_frames, motion=0.25):
+    """The bench scene: a textured plane rendered at 640x480."""
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    from ar_orbslam2_tpu_torch.data import synthetic
+    cam = Camera(**CAM_KW)
+    imgs, R_cw, t_cw = synthetic.render_plane_sequence(
+        cam, n_frames=n_frames, seed=0, motion=motion)
+    return cam, list(imgs), R_cw, t_cw
+
+
+def trajectory_numbers(slam, poses, R_cw, t_cw):
+    """(init frame, tracked flags after init, online ATE, exported ATE,
+    keyframe ATE).
+
+    The online ATE is over the poses track_monocular_batch returned, each
+    in the map frame of its moment; the exported ATE is over
+    SlamSystem.frame_trajectory(), the trajectory the system saves: every
+    frame re-composed against the final pose of its reference keyframe
+    (System::SaveTrajectoryTUM); the keyframe ATE is over the keyframe
+    trajectory after BA, the quality of the map."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.eval.ate import ate_rmse
+    ok = [p is not None for p in poses]
+    if not any(ok):
+        return None, [], float("nan"), float("nan"), float("nan")
+    init = ok.index(True)
+    gt_c = -(np.swapaxes(R_cw, -1, -2) @ t_cw[..., None])[..., 0]
+    est = np.array([-(p[:3, :3].T @ p[:3, 3]) for p in poses if p is not None])
+    gt = np.array([gt_c[i] for i, p in enumerate(poses) if p is not None])
+    online = float(ate_rmse(est, gt, with_scale=True))
+    ts, _, t_wc = slam.frame_trajectory()
+    idx = np.round(np.asarray(ts) * 30.0).astype(int)
+    exported = float(ate_rmse(t_wc, gt_c[idx], with_scale=True))
+    ts_k, _, t_k = slam.keyframe_trajectory()
+    idx_k = np.round(np.asarray(ts_k) * 30.0).astype(int)
+    keyframes = float(ate_rmse(t_k, gt_c[idx_k], with_scale=True))
+    return init, ok[init + 1:], online, exported, keyframes
+
+
+def trajectory_gates(tag, slam, after, ate, ate_name="ATE"):
+    if not after:
+        fail(f"{tag}: never initialised")
+    share = sum(after) / len(after)
+    n_kf = slam.store.n_keyframes()
+    if slam.tracking.state != "OK":
+        fail(f"{tag}: final state {slam.tracking.state}")
+    if share < TRACKED_SHARE_GATE:
+        fail(f"{tag}: tracked share {share:.3f} < {TRACKED_SHARE_GATE}")
+    if n_kf < MIN_KEYFRAMES:
+        fail(f"{tag}: {n_kf} keyframes < {MIN_KEYFRAMES}")
+    if not ate < ATE_GATE:
+        fail(f"{tag}: {ate_name} {ate:.4f} >= {ATE_GATE}")
+
+
+def percentile(values, q):
+    v = sorted(values)
+    return v[min(int(q * len(v)), len(v) - 1)]
 
 
 def run_main_path(torch, CH):
-    """Phase 4: the port's main path on the card."""
-    import numpy as np
-
-    from ar_orbslam2_tpu_torch.core.camera import Camera
-    from ar_orbslam2_tpu_torch.data import synthetic
-    from ar_orbslam2_tpu_torch.eval.ate import ate_rmse
+    """Phase 4: the per-frame main path on the card."""
     from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
 
-    cam = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0,
-                 width=640, height=480)
-    n_frames = 60
-    imgs, R_cw, t_cw = synthetic.render_plane_sequence(
-        cam, n_frames=n_frames, seed=0, motion=0.25)
+    n_frames = PER_FRAME_FRAMES
+    cam, imgs, R_cw, t_cw = make_sequence(n_frames)
     cfg = SlamConfig(use_fused_tracking=False, async_mapping=False,
                      enable_loop_closing=False, enable_relocalization=False)
     slam = SlamSystem(cam, cfg, device="cuda")
@@ -235,43 +375,341 @@ def run_main_path(torch, CH):
     CH.fused_windowed_top2.launches = 0
     t0 = time.perf_counter()
     poses = slam.track_monocular_batch(
-        list(imgs), timestamps=[i / 30.0 for i in range(n_frames)])
+        imgs, timestamps=[i / 30.0 for i in range(n_frames)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = CH.fused_windowed_top2.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-
-    ok = [p is not None for p in poses]
-    if not any(ok):
-        fail("main path never initialised")
-    init = ok.index(True)
-    after = ok[init + 1:]
-    share = sum(after) / max(len(after), 1)
-    est = np.array([-(p[:3, :3].T @ p[:3, 3]) for p in poses if p is not None])
-    gt = np.array([-(R_cw[i].T @ t_cw[i])
-                   for i, p in enumerate(poses) if p is not None])
-    ate = float(ate_rmse(est, gt, with_scale=True))
-    steady = sorted(frame_ms[init + 1:])
-    med = steady[len(steady) // 2]
-    p90 = steady[min(int(0.9 * len(steady)), len(steady) - 1)]
-    n_kf, n_mp = slam.store.n_keyframes(), slam.store.n_map_points()
     slam.shutdown()
+
+    init, after, ate, ate_exp, ate_kf = trajectory_numbers(
+        slam, poses, R_cw, t_cw)
+    steady = frame_ms[(init or 0) + 1:]
     phase("main-path", frames=n_frames, init_frame=init,
           tracked_after_init=f"{sum(after)}/{len(after)}",
-          state=slam.tracking.state, keyframes=n_kf, map_points=n_mp,
-          ate=f"{ate:.5f}", ms_per_frame_median=f"{med:.2f}",
-          ms_per_frame_p90=f"{p90:.2f}", wall_s=f"{wall:.2f}",
-          kernel_launches=launches, peak_device_mib=f"{peak_mib:.1f}")
-    if slam.tracking.state != "OK":
-        fail(f"final state {slam.tracking.state}")
-    if share < TRACKED_SHARE_GATE:
-        fail(f"tracked share {share:.3f} < {TRACKED_SHARE_GATE}")
-    if n_kf < MIN_KEYFRAMES:
-        fail(f"{n_kf} keyframes < {MIN_KEYFRAMES}")
-    if not ate < ATE_GATE:
-        fail(f"ATE {ate:.4f} >= {ATE_GATE}")
+          state=slam.tracking.state, keyframes=slam.store.n_keyframes(),
+          map_points=slam.store.n_map_points(),
+          ate=f"{ate:.5f}", ate_exported=f"{ate_exp:.5f}",
+          ate_keyframes=f"{ate_kf:.5f}",
+          ms_per_frame_median=f"{percentile(steady, 0.5):.2f}",
+          ms_per_frame_p90=f"{percentile(steady, 0.9):.2f}",
+          wall_s=f"{wall:.2f}", kernel_launches=launches,
+          launches_per_tracked_frame=f"{launches / max(sum(after), 1):.2f}",
+          peak_device_mib=f"{peak_mib:.1f}")
+    trajectory_gates("main-path", slam, after, ate)
     if launches < sum(after):
         fail(f"{launches} kernel launches < {sum(after)} tracked frames")
+    return launches
+
+
+def fused_config(async_mapping):
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig
+    return SlamConfig(use_fused_tracking=True, async_mapping=async_mapping,
+                      enable_loop_closing=False, enable_relocalization=False)
+
+
+def host_branch_step(torch, fe):
+    """The alternative to "always compute the fallback and select": graph
+    A (extraction + motion-model track), one host read of motion_ok, then
+    graph B with the fallback run or skipped. Built from the package's own
+    megastep halves, for measurement only. Returns (step function giving
+    the frame's record, the three graph runners)."""
+    from ar_orbslam2_tpu_torch.frontend.orb import extract_orb
+    from ar_orbslam2_tpu_torch.system import fused as F
+    from ar_orbslam2_tpu_torch.system.graph import GraphRunner
+    cell, kw = {}, fe._step_kw
+
+    @torch.no_grad()
+    def part_a():
+        f = extract_orb(fe._img_in, fe.orb_cfg)
+        mid = F._megastep_motion(
+            fe.cam, fe.state, f["uv"], f["desc_bits"], f["octave"],
+            f["valid"], min_track_matches=kw["min_track_matches"],
+            min_inliers_track=kw["min_inliers_track"],
+            undistort=kw["undistort"])
+        if not cell:                    # the first call fixes the buffers
+            cell["f"] = {k: torch.empty_like(v) for k, v in f.items()}
+            cell["mid"] = {k: torch.empty_like(v) for k, v in mid.items()}
+        for k, v in f.items():
+            cell["f"][k].copy_(v)
+        for k, v in mid.items():
+            cell["mid"][k].copy_(v)
+
+    def part_b(mode):
+        @torch.no_grad()
+        def run():
+            f = cell["f"]
+            new, rec = F._megastep_rest(
+                fe.cam, fe.state, cell["mid"], f["desc_bits"], f["octave"],
+                f["valid"], f["angle"], scale_factor=kw["scale_factor"],
+                n_levels=kw["n_levels"],
+                min_inliers_track=kw["min_inliers_track"], fallback=mode)
+            fe._commit(new, rec)
+        return run
+
+    part_a()                            # allocate the hand-over buffers
+    restore = fe.runner.restore
+    a = GraphRunner(part_a, "cuda")
+    b_run = GraphRunner(part_b("run"), "cuda", restore=restore)
+    b_skip = GraphRunner(part_b("skip"), "cuda", restore=restore)
+    for r in (a, b_run, b_skip):
+        r.capture()
+
+    def step():
+        a.run()
+        ok = bool(cell["mid"]["motion_ok"].cpu())       # the host read
+        (b_skip if ok else b_run).run()
+        return fe.read_record()
+    return step, (a, b_run, b_skip)
+
+
+def run_graph_check(torch, CH):
+    """Phase 5: graph replay against the same step run eagerly."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.system import fused as F
+    from ar_orbslam2_tpu_torch.system.slam import SlamSystem
+
+    cam, imgs, _, _ = make_sequence(12 + 3 * CHUNK)
+    slam = SlamSystem(cam, fused_config(False), device="cuda")
+    fe = slam.tracking.fused
+    n = 0
+    while n < 12:                 # init + a few fused per-frame steps
+        slam.track_monocular(imgs[n], timestamp=n / 30.0)
+        n += 1
+    if slam.tracking.state != "OK" or fe.state is None:
+        fail("graph check: the system did not reach the fused state")
+    if fe.runner.captures != 1 or fe.runner.launches_per_replay < 2:
+        fail(f"graph check: {fe.runner.captures} captures, "
+             f"{fe.runner.launches_per_replay} kernel launches per replay")
+    r = fe.runner
+    phase("graph", captures=r.captures, nodes=r.n_nodes,
+          warmup_s=f"{r.warmup_s:.3f}", capture_s=f"{r.capture_s:.3f}",
+          instantiate_s=f"{r.instantiate_s:.3f}",
+          kernel_launches_per_replay=r.launches_per_replay)
+    if not r.n_nodes:
+        fail("graph check: no node counted in the graph's dump")
+
+    torch.cuda.synchronize()
+    start = {k: v.clone() for k, v in fe.state.items()}
+    stack = np.stack(imgs[n:n + CHUNK])
+
+    def restore():
+        for k, v in start.items():
+            fe.state[k].copy_(v)
+
+    def timed_ms(fn, repeats=3):
+        out, times = None, []
+        for _ in range(repeats):
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+        return out, sorted(times)[len(times) // 2]
+
+    # graph: dispatch + collect (one upload, 8 replays, one readback)
+    before = CH.fused_windowed_top2.launches
+    recs_g, graph_ms = timed_ms(lambda: fe.step_chunk(stack))
+    replayed = (CH.fused_windowed_top2.launches - before) // 3
+    snaps_g = {k: v.clone() for k, v in fe._chunk_snaps.items()}
+    state_g = {k: v.clone() for k, v in fe.state.items()}
+    # eager: the same step function on the card, no graph
+    kw = dict(fe._step_kw)
+    imgs_dev = torch.as_tensor(stack, device="cuda")
+
+    def eager():
+        return F.track_chunk(cam, fe.orb_cfg, dict(start), imgs_dev, **kw)
+    (state_e, recs_e, snaps_e), eager_ms = timed_ms(eager, repeats=1)
+
+    worst = 0.0
+    for k in F._REC_INTS:
+        a = np.asarray(recs_g[k]).astype(np.int64)
+        b = recs_e[k].cpu().numpy().astype(np.int64)
+        if not np.array_equal(a, b):
+            fail(f"graph != eager: record {k}: {a.tolist()} vs {b.tolist()}")
+    for k in ("R", "t"):
+        worst = max(worst, float(np.abs(
+            recs_g[k] - recs_e[k].cpu().numpy()).max()))
+    for k in ("slot", "oct", "valid", "uv", "desc"):
+        if not torch.equal(snaps_g[k], snaps_e[k]):
+            fail(f"graph != eager: snapshot {k}")
+    for k in ("acc_visible", "acc_found", "prev_slot", "have_vel"):
+        if not torch.equal(state_g[k], state_e[k]):
+            fail(f"graph != eager: state {k}")
+    if worst > GRAPH_POSE_TOL:
+        fail(f"graph != eager: pose gap {worst:.3g} > {GRAPH_POSE_TOL}")
+    if min(int(v) for v in recs_g["n_inliers"]) < 30:
+        fail("graph check: the chunk did not track")
+    # no wait inside a dispatch: behind a sleep kernel the host must get
+    # through the whole dispatch before the device reaches its first work
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(3 * SLEEP_CYCLES)
+    reached = torch.cuda.Event()
+    reached.record()
+    t0 = time.perf_counter()
+    handle = fe.dispatch_chunk(stack)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    if reached.query():
+        fail("dispatch_chunk waited for the device (or took the host "
+             f"longer than the sleep: {dispatch_ms:.1f} ms)")
+    clock_now = sm_clock_mhz("clocks.sm")       # while the chunk runs
+    fe.collect_chunk(handle)
+    phase("graph-vs-eager", frames=CHUNK, integers_equal=True,
+          dispatch_waits_for_device=False,
+          dispatch_host_ms=f"{dispatch_ms:.2f}",
+          pose_max_abs_gap=f"{worst:.3g}", tol=GRAPH_POSE_TOL,
+          kernel_launches_per_chunk=replayed,
+          graph_chunk_ms_per_frame=f"{graph_ms:.2f}",
+          eager_chunk_ms_per_frame=f"{eager_ms:.2f}",
+          sm_clock_mhz=clock_now, captures=fe.n_captures)
+
+    # the two replacements of the device branch, per frame with one
+    # readback each (the host-branch variant cannot run a chunk unsynced)
+    host_step, host_runners = host_branch_step(torch, fe)
+
+    def per_frame(one):
+        def run():
+            out = []
+            for img in stack:
+                fe.extract(img)
+                out.append(one())
+            return out
+        return run
+    sel, sel_ms = timed_ms(per_frame(fe.step))
+    host, host_ms = timed_ms(per_frame(host_step))
+    for a, b in zip(sel, host):
+        for k in F._REC_INTS:
+            if int(a[k]) != int(b[k]):
+                fail(f"host-branch != select: record {k}")
+    n_fb = sum(1 for a in sel if not a["motion_ok"])
+    captures = fe.n_captures + sum(x.captures for x in host_runners)
+    phase("fallback-variants", frames=CHUNK, fallback_frames=n_fb,
+          select_ms_per_frame=f"{sel_ms:.2f}",
+          host_branch_ms_per_frame=f"{host_ms:.2f}",
+          host_branch_nodes="+".join(str(x.n_nodes) for x in host_runners),
+          records_equal=True, captures=captures)
+    if captures != 4:
+        fail(f"graph check: {captures} captures, expected 4")
+    slam.shutdown()
+    return dict(nodes=r.n_nodes, graph_ms=graph_ms, eager_ms=eager_ms)
+
+
+def timeline(metrics):
+    """Compact per-frame trace of a run, for a failed gate's report."""
+    rows = []
+    for r in metrics:
+        kind = "C" if r.get("chunked") else ("F" if r.get("fused") else "-")
+        tag = ""
+        if "t_kf_ms" in r:
+            tag = " KF-hard" if r.get("kf_hard") else " KF"
+        rows.append(f"{r['frame_id']}:{r['state'][0]}{kind}"
+                    f"{r['n_inliers']}/{r.get('local_visible', 0)}"
+                    f"k{r['n_kf']}{tag}")
+    return " ".join(rows)
+
+
+def run_fused_path(torch, CH):
+    """Phase 6: the fused, chunked, pipelined main path at full width."""
+    from ar_orbslam2_tpu_torch.system.slam import SlamSystem
+
+    n_frames = FUSED_FRAMES
+    cam, imgs, R_cw, t_cw = make_sequence(n_frames, FUSED_MOTION)
+    slam = SlamSystem(cam, fused_config(True), device="cuda")
+    t0 = time.perf_counter()
+    slam.precompile()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    fe = slam.tracking.fused
+    phase("fused-precompile", seconds=f"{warm_s:.2f}",
+          captures=slam.n_captures,
+          capture_s=f"{fe.runner.capture_s:.3f}",
+          instantiate_s=f"{fe.runner.instantiate_s:.3f}")
+
+    collected = []                  # host time at each chunk's readback
+    clocks = []                     # SM clock, sampled while chunks run
+    collect = fe.collect_chunk
+
+    def stamped(handle):
+        out = collect(handle)
+        collected.append(time.perf_counter())
+        if len(collected) % 4 == 0:     # the next chunk is in flight
+            clocks.append(sm_clock_mhz("clocks.sm"))
+        return out
+    fe.collect_chunk = stamped
+
+    torch.cuda.reset_peak_memory_stats()
+    CH.fused_windowed_top2.launches = 0
+    replays0 = fe.runner.replays
+    t0 = time.perf_counter()
+    poses = slam.track_monocular_batch(
+        imgs, timestamps=[i / 30.0 for i in range(n_frames)], chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = CH.fused_windowed_top2.launches
+    replays = fe.runner.replays - replays0
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    slam.shutdown()                 # joins the worker; raises what it died of
+
+    init, after, ate, ate_exp, ate_kf = trajectory_numbers(
+        slam, poses, R_cw, t_cw)
+    t, am = slam.tracking, slam.tracking.async_mapper
+    m = t.metrics
+    chunked = sum(1 for r in m if r.get("chunked"))
+    fused = sum(1 for r in m if r.get("fused"))
+    events = [r for r in m if "t_kf_ms" in r]
+    hard = sum(1 for r in events if r.get("kf_hard"))
+    soft = sum(1 for r in events if r.get("kf_hard") is False)
+    kf_ms = [r["t_kf_ms"] for r in events]
+    # a chunk's period: the time between successive readbacks, per frame
+    periods = [(b - a) * 1e3 / CHUNK
+               for a, b in zip(collected, collected[1:])] or [float("nan")]
+    phase("fused-path", frames=n_frames, init_frame=init,
+          tracked_after_init=f"{sum(after)}/{len(after)}",
+          state=t.state, keyframes=slam.store.n_keyframes(),
+          map_points=slam.store.n_map_points(),
+          ate_keyframes=f"{ate_kf:.5f}", ate_exported=f"{ate_exp:.5f}",
+          ate_online=f"{ate:.5f}",
+          resets=t.n_resets, chunks=len(collected),
+          frames_in_chunks=chunked, frames_per_frame_fused=fused - chunked,
+          frames_per_frame_other=len(m) - fused,
+          ms_per_frame_median=f"{percentile(periods, 0.5):.2f}",
+          ms_per_frame_p90=f"{percentile(periods, 0.9):.2f}",
+          wall_s=f"{wall:.2f}",
+          wall_ms_per_frame=f"{wall * 1e3 / n_frames:.2f}",
+          sm_clock_mhz="/".join(f"{c:.0f}" for c in clocks) or "none",
+          soft_keyframes=soft, hard_keyframes=hard,
+          other_keyframe_events=len(events) - soft - hard,
+          keyframe_event_ms_median=(
+              f"{percentile(kf_ms, 0.5):.2f}" if kf_ms else "none"),
+          worker_processed=am.n_processed, worker_error=am.error,
+          captures_after_warmup=slam.captures_after_warmup,
+          graph_replays=replays, kernel_launches=launches,
+          launches_per_fused_frame=f"{launches / max(fused, 1):.2f}",
+          peak_device_mib=f"{peak_mib:.1f}")
+    print(f"[fused-timeline] {timeline(m)}", flush=True)
+    # With async mapping a chunk tracks against a bundle snapshot up to two
+    # chunks old, so the returned poses lag the map; all three trajectories
+    # are still held to the one bound.
+    trajectory_gates("fused-path", slam, after, ate_kf, "keyframe ATE")
+    for name, value in (("online", ate), ("exported", ate_exp)):
+        if not value < ATE_GATE:
+            fail(f"fused-path: {name} ATE {value:.4f} >= {ATE_GATE}")
+    if len(collected) < 10:
+        fail(f"fused-path: only {len(collected)} chunks ran")
+    if t.n_resets != 0:
+        fail(f"fused-path: {t.n_resets} resets")
+    if am.error is not None or am.n_processed < 1:
+        fail(f"fused-path: worker error={am.error!r} "
+             f"processed={am.n_processed}")
+    if slam.captures_after_warmup != 0:
+        fail(f"fused-path: {slam.captures_after_warmup} graph captures "
+             "after warm-up")
+    if replays < chunked or launches < 2 * fused:
+        fail(f"fused-path: {replays} replays, {launches} kernel launches "
+             f"for {fused} fused frames")
     return launches
 
 
@@ -296,7 +734,8 @@ def main():
         timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card_line = smi.stdout.strip().splitlines()[0]
+    print(card_line, flush=True)
     kind = torch.cuda.get_device_name(0)
     phase("card", name=json.dumps(kind), torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
@@ -312,10 +751,18 @@ def main():
     # 3. kernel vs plain version
     rec = check_kernel(torch, CH)
 
-    # 4. main path
-    rec["launches"] = run_main_path(torch, CH)
+    # 4. per-frame main path
+    launches = run_main_path(torch, CH)
+
+    # 5. graph replay vs eager
+    run_graph_check(torch, CH)
+
+    # 6. fused, chunked, pipelined main path
+    launches += run_fused_path(torch, CH)
+    rec["launches"] = launches
     torch.cuda.synchronize()
 
+    print(card_line, flush=True)
     print(json.dumps({"kernels": [rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

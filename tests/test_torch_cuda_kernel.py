@@ -131,3 +131,41 @@ def test_kernel_launcher_checks_its_inputs(cuda_device):
     bad_layout[7] = args[7].t().contiguous().t()   # (M, 2), not contiguous
     with pytest.raises(ValueError):
         CH.top2_cuda(*bad_layout)
+
+
+@pytest.mark.cuda
+def test_graph_replay_runs_the_kernel_and_counts_it(cuda_device):
+    """A windowed search recorded into a CUDA graph: the capture launches
+    nothing and counts in `captured`; every replay runs the kernel, gives
+    what the eager call gives on the inputs of that moment, and adds the
+    step's launches to `launches`. State named in `restore` survives the
+    warm-up and the capture."""
+    from ar_orbslam2_tpu_torch.system.graph import N_WARMUP, GraphRunner
+    args = _torch(_problem(1024, 1024, False, seed=21), cuda_device)
+    args[0] = TH.packed_from_signs(args[0])
+    args[6] = TH.packed_from_signs(args[6])
+    out = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    calls = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def step():
+        idx, _ = CH.fused_windowed_top2(*args, nn_ratio=0.9)
+        out.copy_(idx)
+        calls.add_(1)
+
+    runner = GraphRunner(step, cuda_device, restore=[calls])
+    launched, captured = (CH.fused_windowed_top2.launches,
+                          CH.fused_windowed_top2.captured)
+    runner.capture()
+    assert (runner.captures, runner.launches_per_replay) == (1, 1)
+    assert CH.fused_windowed_top2.captured == captured + 1
+    assert CH.fused_windowed_top2.launches == launched + N_WARMUP
+    assert int(calls) == 0 and runner.n_nodes >= 3
+    launched = CH.fused_windowed_top2.launches
+    for shift in (0.0, 40.0):            # new inputs in the same buffers
+        args[1].add_(shift)
+        runner.run()
+        want, _ = CH.fused_windowed_top2_reference(*args, nn_ratio=0.9)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert int(calls) == 2 and runner.replays == 2 and runner.captures == 1
+    assert CH.fused_windowed_top2.launches == launched + 2

@@ -59,7 +59,7 @@ def sequence():
 @pytest.fixture(scope="module")
 def port_run(sequence):
     imgs, R_cw, t_cw = sequence
-    slam = SlamSystem(CAM, _port_cfg())
+    slam = SlamSystem(CAM, _port_cfg(), device="cpu")
     poses = slam.track_monocular_batch(
         list(imgs), timestamps=[i / 30.0 for i in range(len(imgs))])
     return slam, poses
@@ -102,7 +102,7 @@ def test_port_ate(port_run, sequence):
 def test_carried_state_tracks_like_jax(jax_run, sequence):
     imgs, _, _ = sequence
     jax_poses, snap, _ = jax_run
-    slam = interop.from_state(CAM, _port_cfg(), snap)
+    slam = interop.from_state(CAM, _port_cfg(), snap, device="cpu")
     assert slam.store.n_map_points() == int(snap["map"]["mp_valid"].sum())
     for i in range(SNAP_AT + 1, SNAP_AT + 1 + N_NEXT):
         T = slam.track_monocular(imgs[i], timestamp=i / 30.0)
@@ -149,11 +149,32 @@ def test_trajectory_exports(port_run, tmp_path):
 
 
 def test_unported_options_raise():
-    for opt in ("use_fused_tracking", "async_mapping",
-                "enable_loop_closing", "enable_relocalization"):
+    for opt in ("enable_loop_closing", "enable_relocalization"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlamConfig(**dict(SLICE, **{opt: True}))
+    for opt in ("use_fused_tracking", "async_mapping"):      # ported
+        assert getattr(SlamConfig(**dict(SLICE, **{opt: True})), opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamConfig(sensor="STEREO", **SLICE)
     with pytest.raises(NotImplementedError):
         SlamConfig()          # the JAX defaults turn on unported paths
+
+
+def test_entry_points_default_to_the_card():
+    """Without a GPU the entry points raise instead of moving to the CPU;
+    the tests ask for the CPU explicitly."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    from ar_orbslam2_tpu_torch.mapping.local_mapping import LocalMapper
+    from ar_orbslam2_tpu_torch.mapstore.map import MapStore
+    from ar_orbslam2_tpu_torch.system.tracking import Tracking
+    store = MapStore(MapConfig(**SIZES["map"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlamSystem(CAM, _port_cfg())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalMapper(store, CAM)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Tracking(store, None, CAM)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.from_state(CAM, _port_cfg(), {})
