@@ -13,6 +13,10 @@ the slot->landmark table, the bundle anchor, the counter baselines, and
 Tracking's fused bookkeeping (``_fused_prev_pose``, the ``_inl_*`` levels,
 ``last_rel``). The JAX package keeps ±1 signs beside the packed landmark
 descriptors; the port re-expands them on its device.
+
+The place-recognition database goes across as well (the bow matrix, its
+row mask and the codebook's bits) with the relocalizer's settings, so both
+packages rank the same relocalization candidates for the same frame.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ def export_state(slam) -> dict:
             if getattr(t, "_fused_prev_pose", None) is None
             else tuple(_np(v) for v in t._fused_prev_pose)),
         fused=_export_fused(getattr(t, "fused", None)),
+        kfdb=_export_kfdb(slam),
         mapper_recent=dict(slam.mapper.recent),
         next_frame_id=int(slam._next_frame_id),
         last_frame=None)
@@ -73,6 +78,31 @@ def export_state(slam) -> dict:
                      t_cr=_np(getattr(lf, "t_cr", None)))
         state["last_frame"] = frame
     return state
+
+
+def _export_kfdb(slam):
+    """The keyframe database and the relocalizer's settings (either
+    package), or None when the system has no relocalizer."""
+    kfdb = getattr(slam, "kfdb", None)
+    reloc = getattr(slam.tracking, "relocalizer", None)
+    if kfdb is None or reloc is None:
+        return None
+    signs = kfdb.vocab.signs
+    signs = signs.cpu().numpy() if hasattr(signs, "cpu") else np.asarray(signs)
+    return dict(bow=np.array(kfdb.bow, copy=True),
+                has_bow=np.array(kfdb.has_bow, copy=True),
+                vocab_bits=(signs > 0).astype(np.uint8),
+                max_candidates=int(reloc.max_candidates))
+
+
+def _load_kfdb(slam, db: dict):
+    """Put an exported database into a port SlamSystem that has one."""
+    from .loop.place_recognition import VocabTensor
+    kfdb = slam.kfdb
+    if not np.array_equal(db["vocab_bits"], kfdb.vocab.bits):
+        kfdb.vocab = VocabTensor(bits=db["vocab_bits"], device=kfdb.device)
+    kfdb.load(db["bow"], db["has_bow"])
+    slam.tracking.relocalizer.max_candidates = int(db["max_candidates"])
 
 
 def _export_fused(fe):
@@ -159,6 +189,8 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     t._low_streak = int(tr.get("low_streak", 0))
     t.last_rel = tr.get("last_rel")
     t._fused_prev_pose = tr.get("fused_prev_pose")
+    if state.get("kfdb") is not None and slam.kfdb is not None:
+        _load_kfdb(slam, state["kfdb"])
     fused = state.get("fused")
     if fused is not None and t.fused is not None:
         _load_fused(t.fused, fused)

@@ -16,8 +16,9 @@ the host store is protected by the coarse MapStore.lock (mMutexMapUpdate
 parity) held around write-backs and chunk-boundary reads. The fused bundle
 refreshes at the next chunk boundary after the mapper published.
 
-Loop closing and the relocalizer's keyframe database are not ported yet;
-the worker runs the mapping stage only.
+After a keyframe's mapping step the worker adds it to the relocalizer's
+place-recognition database (on its own stream; the database guards the
+shared bow matrix). Loop closing is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ import torch
 class AsyncMapper:
     """Keyframe-queue worker wrapping LocalMapper."""
 
-    def __init__(self, mapper, device=None):
+    def __init__(self, mapper, device=None, relocalizer=None):
         self.mapper = mapper
+        self.relocalizer = relocalizer
         self.device = torch.device(mapper.device if device is None
                                    else device)
         self._q: queue.Queue = queue.Queue()
@@ -96,6 +98,9 @@ class AsyncMapper:
                             kf = kf()    # deferred insert -> kf id (or None)
                         if kf is not None:
                             self.mapper.process_keyframe(kf)
+                            if self.relocalizer is not None and \
+                                    self.relocalizer.kfdb is not None:
+                                self.relocalizer.kfdb.add(kf)
                         self.n_processed += 1
                 except BaseException as e:      # surface on next submit/join
                     self.error = e

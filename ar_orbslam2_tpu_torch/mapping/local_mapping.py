@@ -8,9 +8,9 @@ is vectorized numpy on the host MapStore.
 
 Step order mirrors LocalMapping::Run: ProcessNewKeyFrame -> MapPointCulling
 -> CreateNewMapPoints -> SearchInNeighbors (fuse) -> LocalBundleAdjustment
--> KeyFrameCulling. The JAX package's ``lax.scan``s over neighbours and
-fuse targets are loops here; each stage uploads its inputs once and reads
-its results back once.
+-> KeyFrameCulling. The JAX package's ``lax.scan`` over neighbours is a
+loop here, the one over fuse targets a single batched search launch; each
+stage uploads its inputs once and reads its results back once.
 """
 from __future__ import annotations
 
@@ -61,20 +61,18 @@ def _triangulate_neighbors(cam, d, scale_factor=1.2):
 
 def _fuse_targets(cam, b, tgts, scale_factor=1.2, n_levels=8, radius=3.0):
     """ORBmatcher::Fuse of one landmark bundle into every target keyframe:
-    one windowed-search launch per target. Descriptors stay packed; the
-    search unpacks (plain version) or reads them as words (kernel).
+    the bundle is projected into all T targets at once and the T windowed
+    searches are ONE launch (the JAX package's single ``lax.scan``
+    dispatch). Descriptors stay packed; the search unpacks (plain version)
+    or reads them as words (kernel).
     Returns idx (T, L) — matched keypoint per landmark per target."""
-    out = []
-    for i in range(tgts["R"].shape[0]):
-        idx, _, _ = matcher.search_local_points(
-            cam, tgts["R"][i], tgts["t"][i], b["pos"], b["desc"],
-            b["normal"], b["dmin"], b["dmax"], b["valid"],
-            tgts["uv"][i], tgts["desc"][i], tgts["oct"][i],
-            tgts["kp_valid"][i],
-            th_radius=radius, th=H.TH_LOW, nn_ratio=1.0,
-            n_levels=n_levels, scale_factor=scale_factor)
-        out.append(torch.where(tgts["valid"][i], idx, -1))
-    return torch.stack(out)
+    idx, _, _ = matcher.search_local_points(
+        cam, tgts["R"], tgts["t"], b["pos"], b["desc"],
+        b["normal"], b["dmin"], b["dmax"], b["valid"],
+        tgts["uv"], tgts["desc"], tgts["oct"], tgts["kp_valid"],
+        th_radius=radius, th=H.TH_LOW, nn_ratio=1.0,
+        n_levels=n_levels, scale_factor=scale_factor)
+    return torch.where(tgts["valid"][:, None], idx, -1)
 
 
 def _bundle_upload(b):

@@ -27,23 +27,23 @@ def windowed_match(query_uv, query_signs, query_valid, radius,
 
     For each query find the best target keypoint with |du|,|dv| <= radius,
     octave in [lo, hi], Hamming <= th, passing the NN-ratio test; optionally
-    mutual-best. Descriptors may be ±1 int8 signs or packed uint8.
+    mutual-best. Descriptors may be ±1 int8 signs or packed uint8. `radius`
+    is a number or a per-query tensor; no octave bounds means no octave
+    gate: neither costs a constant tensor. The query geometry and the
+    keypoints may carry a leading batch dimension (see
+    ops/cuda_hamming.py): the whole batch is one launch.
 
     Returns (idx (N,) int32 — matched keypoint or -1, dist (N,) int32).
     """
-    n = query_uv.shape[0]
-    dev = query_uv.device
     if torch.is_tensor(radius):
-        r = radius.to(torch.float32).expand(n).contiguous()
-    else:       # torch.full: a host-made tensor would cost a stream sync
-        r = torch.full((n,), float(radius), dtype=torch.float32, device=dev)
-    if octave_lo is None:
-        octave_lo = torch.full((n,), -(10 ** 6), dtype=torch.int32, device=dev)
-        octave_hi = torch.full((n,), 10 ** 6, dtype=torch.int32, device=dev)
+        radius = radius.to(torch.float32).expand(
+            query_uv.shape[:-1]).contiguous()
+    if octave_lo is not None:
+        octave_lo = octave_lo.to(torch.int32).contiguous()
+        octave_hi = octave_hi.to(torch.int32).contiguous()
     return fused_windowed_top2(
-        query_signs, query_uv.contiguous(), r,
-        octave_lo.to(torch.int32).contiguous(),
-        octave_hi.to(torch.int32).contiguous(), query_valid.contiguous(),
+        query_signs, query_uv.contiguous(), radius, octave_lo, octave_hi,
+        query_valid.contiguous(),
         kp_signs, kp_uv.contiguous(), kp_octave.to(torch.int32).contiguous(),
         kp_valid.contiguous(), th=th, nn_ratio=nn_ratio, mutual=mutual)
 
@@ -71,8 +71,11 @@ def project_map_points(cam, R_cw, t_cw, xw, normals, dmin, dmax, valid,
     """Frustum + view-angle + distance gate for map points, with scale
     prediction. Parity: Frame::isInFrustum + MapPoint::PredictScale.
 
+    R_cw (T, 3, 3) / t_cw (T, 3) project the same points into T frames.
     Returns dict(uv, pred_octave, visible, view_cos).
     """
+    if R_cw.dim() == 3:         # (T, 3, 3) poses: project into each
+        R_cw, t_cw = R_cw[:, None], t_cw[:, None]
     xc = (R_cw @ xw[..., None])[..., 0] + t_cw
     z = xc[..., 2]
     uv = cam_mod.project(cam, xc)
@@ -105,7 +108,8 @@ def search_local_points(cam, R_cw, t_cw, mp_xw, mp_signs, mp_normals,
     Parity: Tracking::SearchLocalPoints -> ORBmatcher::SearchByProjection:
     radius = (2.5 if viewCos > 0.998 else th_radius) * scale^level, octave
     window [lvl-1, lvl]. Returns (kp match idx per map point (-1 none),
-    visible mask, dist).
+    visible mask, dist). With T poses and keypoint sets stacked (T, M, ...)
+    the T searches are one launch and every result is (T, N).
     """
     proj = project_map_points(cam, R_cw, t_cw, mp_xw, mp_normals,
                               mp_dmin, mp_dmax, mp_valid,

@@ -1,24 +1,40 @@
-"""Fused windowed Hamming top-2 search: CUDA kernel + plain torch version.
+"""Fused windowed Hamming search: CUDA kernel + plain torch version.
 
 The per-frame hot op of the front end (reference: ORBmatcher::
-SearchByProjection) and of the mapping stage's fuse. Port of
-ar_orbslam2_tpu/ops/pallas_hamming.py: the TPU kernel ``_kernel`` becomes
-the hand-written Hopper kernel ``csrc/cuda_hamming.cu`` (see its header for
-the design), built with nvcc into the package's git-ignored ``build/``
-directory at first use and bound with ctypes.
+SearchByProjection), of the mapping stage's fuse and of the relocalizer's
+projection top-up. Port of ar_orbslam2_tpu/ops/pallas_hamming.py: the TPU
+kernel ``_kernel`` and the filter around it become ONE launch of the
+hand-written Hopper kernel ``csrc/cuda_hamming.cu`` (see its header for the
+design), built with nvcc into the package's git-ignored ``build/`` directory
+at first use and bound with ctypes.
 
 ``fused_windowed_top2`` takes the JAX entry's arguments and layout (±1 int8
 signs); callers that hold packed descriptors ((N, 32) uint8, LSB-first) may
-pass those instead. On CPU tensors it runs the plain version
-(``fused_windowed_top2_reference``); on CUDA tensors it launches the kernel
-or raises — there is no fallback from the card to the plain version.
+pass those instead. Beyond the JAX entry: ``q_radius`` may be a number (one
+radius for every query), ``q_olo``/``q_ohi`` may be None (no octave gate),
+and any of three argument groups may carry a leading batch dimension B —
+the query descriptors, the query geometry (uv, radius, octave window,
+valid) and the keypoints (descriptors, uv, octave, valid); a group without
+it is shared by the B searches. One launch runs them all.
+
+On CPU tensors the plain version runs (``fused_windowed_top2_reference``);
+on CUDA tensors the kernel is launched or the call raises — there is no
+fallback from the card to the plain version.
+
+The kernel finishes the mutual-best test in the same launch through a small
+persistent workspace (column keys + arrival counters) that it leaves reset.
+Launches on one stream run in order, so eager calls share one workspace per
+stream; a CUDA graph gets a workspace of its own, reserved by the capturing
+code with ``capture_workspace`` (system/graph.py does).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import torch
 
@@ -71,9 +87,10 @@ def _library():
     if _LIB is None:
         lib = ctypes.CDLL(build_kernel())
         p = ctypes.c_void_p
-        lib.hamming_top2_launch.argtypes = [p] * 10 + [
-            ctypes.c_int, ctypes.c_int] + [p] * 5
-        lib.hamming_top2_launch.restype = ctypes.c_int
+        lib.hamming_search_launch.argtypes = (
+            [p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+            + [ctypes.c_int] * 2 + [p] * 8)
+        lib.hamming_search_launch.restype = ctypes.c_int
         lib.cuda_graph_node_count.argtypes = [
             p, ctypes.POINTER(ctypes.c_ulonglong)]
         lib.cuda_graph_node_count.restype = ctypes.c_int
@@ -103,7 +120,8 @@ def _as_signs(desc):
 
 
 def _as_words(desc):
-    """(N, 8) int32 view of packed descriptors (4-byte aligned, contiguous)."""
+    """(..., 8) int32 view of packed descriptors (4-byte aligned,
+    contiguous)."""
     packed = desc if _is_packed(desc) else H.packed_from_signs(desc)
     packed = packed.contiguous()
     if packed.data_ptr() % 4:
@@ -112,21 +130,53 @@ def _as_words(desc):
 
 
 # ---------------------------------------------------------------------------
+# the batch dimension
+# ---------------------------------------------------------------------------
+# base rank of each argument, in call order; a tensor of rank + 1 is batched
+_RANKS = (2, 2, 1, 1, 1, 1, 2, 2, 1, 1)
+_Q_DESC, _Q_GEO, _KP = (0,), (1, 2, 3, 4, 5), (6, 7, 8, 9)
+
+
+def _batched(args, group):
+    """Whether an argument group carries the batch dimension, and its
+    size. Non-tensor members (a scalar radius, a None octave bound) follow
+    the group."""
+    sizes = {args[i].shape[0] for i in group
+             if torch.is_tensor(args[i]) and args[i].dim() == _RANKS[i] + 1}
+    if len(sizes) > 1:
+        raise ValueError(f"batch sizes differ within a group: {sizes}")
+    return (True, sizes.pop()) if sizes else (False, None)
+
+
+def _batch_size(args):
+    """B of a call, or None when no group is batched."""
+    sizes = {b for g in (_Q_DESC, _Q_GEO, _KP)
+             for on, b in (_batched(args, g),) if on}
+    if len(sizes) > 1:
+        raise ValueError(f"batch sizes differ between groups: {sizes}")
+    return sizes.pop() if sizes else None
+
+
+def _item(args, b):
+    """Batch item b of a call's arguments."""
+    return tuple(a[b] if torch.is_tensor(a) and a.dim() == _RANKS[i] + 1
+                 else a for i, a in enumerate(args))
+
+
+# ---------------------------------------------------------------------------
 # raw top-2: (idx0, d0, d1, kp_best_d, kp_best_q)
 # ---------------------------------------------------------------------------
-def top2_reference(q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
-                   kp_desc, kp_uv, kp_octave, kp_valid):
-    """Plain torch version of the kernel: masked hamming_matrix, first-index
-    top-2 per row, first-row minimum per column (pallas_hamming.py:180-194
-    composition, with the kernel's raw outputs)."""
+def _top2_single(q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
+                 kp_desc, kp_uv, kp_octave, kp_valid):
     d = H.hamming_matrix(_as_signs(q_desc), _as_signs(kp_desc),
                          q_valid, kp_valid, invalid_dist=INF)
     du = (q_uv[:, None, 0] - kp_uv[None, :, 0]).abs()
     dv = (q_uv[:, None, 1] - kp_uv[None, :, 1]).abs()
-    r = q_radius[:, None]
+    r = q_radius[:, None] if torch.is_tensor(q_radius) else float(q_radius)
     ok = (du <= r) & (dv <= r)
-    ok &= (kp_octave[None, :] >= q_olo[:, None]) \
-        & (kp_octave[None, :] <= q_ohi[:, None])
+    if q_olo is not None:
+        ok &= (kp_octave[None, :] >= q_olo[:, None]) \
+            & (kp_octave[None, :] <= q_ohi[:, None])
     d = torch.where(ok, d, torch.full_like(d, INF))
     d0, idx0, d1 = H.top2_min(d)
     kp_best_q = torch.argmin(d, dim=0).to(torch.int32)
@@ -134,6 +184,75 @@ def top2_reference(q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
     return idx0, d0, d1, kp_best_d, kp_best_q
 
 
+def top2_reference(*args):
+    """Plain torch version of the kernel's raw outputs: masked
+    hamming_matrix, first-index top-2 per row, first-row minimum per column
+    (pallas_hamming.py:180-194 composition). A batched call is B single
+    calls, stacked."""
+    n_batch = _batch_size(args)
+    if n_batch is None:
+        return _top2_single(*args)
+    outs = [_top2_single(*_item(args, b)) for b in range(n_batch)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's workspace
+# ---------------------------------------------------------------------------
+class Workspace:
+    """Column keys (INT_MAX) and arrival counters (0) of the kernel's
+    mutual-best pass. The kernel leaves both as it found them."""
+    COLS = 1 << 16           # B * M of the largest call it serves
+    BATCH = 1 << 10
+
+    def __init__(self, device, cols=COLS, batch=BATCH):
+        self.keys = torch.full((cols,), _INT_MAX, dtype=torch.int32,
+                               device=device)
+        self.counter = torch.zeros(batch, dtype=torch.int32, device=device)
+
+    def fits(self, cols, batch) -> bool:
+        return cols <= self.keys.shape[0] and batch <= self.counter.shape[0]
+
+
+_STREAM_WS: dict = {}                # (device index, stream handle) -> ws
+_CAPTURE = threading.local()         # .ws: the capturing thread's workspace
+
+
+@contextlib.contextmanager
+def capture_workspace(device):
+    """Reserve a fresh workspace for the launches this thread records into a
+    CUDA graph inside the block. The caller keeps the yielded workspace
+    alive as long as the graph."""
+    ws = Workspace(device)
+    prev = getattr(_CAPTURE, "ws", None)
+    _CAPTURE.ws = ws
+    try:
+        yield ws
+    finally:
+        _CAPTURE.ws = prev
+
+
+def _workspace(dev, stream, cols, batch):
+    if torch.cuda.is_current_stream_capturing():
+        ws = getattr(_CAPTURE, "ws", None)
+        if ws is None or not ws.fits(cols, batch):
+            raise RuntimeError(
+                "a captured search needs a workspace reserved with "
+                "capture_workspace() that fits "
+                f"{cols} column keys and {batch} searches")
+        return ws
+    key = (dev.index, stream)
+    ws = _STREAM_WS.get(key)
+    if ws is None or not ws.fits(cols, batch):
+        ws = Workspace(dev, max(cols, Workspace.COLS),
+                       max(batch, Workspace.BATCH))
+        _STREAM_WS[key] = ws
+    return ws
+
+
+# ---------------------------------------------------------------------------
+# the launch
+# ---------------------------------------------------------------------------
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -146,56 +265,94 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def top2_cuda(q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
-              kp_desc, kp_uv, kp_octave, kp_valid):
-    """Launch the kernel on the current stream; same outputs as
-    top2_reference. Inputs must be CUDA tensors of the documented dtypes."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _search_cuda(args, th, nn_ratio, mutual, raw):
+    """One launch for the whole call. Returns (idx, d0) or, with raw, the
+    five raw outputs; (B, ...) when any group is batched."""
+    (q_desc, q_uv, q_radius, q_olo, q_ohi, q_valid,
+     kp_desc, kp_uv, kp_octave, kp_valid) = args
     dev = q_uv.device
-    n, m = q_uv.shape[0], kp_uv.shape[0]
     if dev.type != "cuda":
-        raise ValueError(f"top2_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    n, m = q_uv.shape[-2], kp_uv.shape[-2]
     if n >= _MAX_ROWS:
         raise ValueError(f"{n} queries: the kernel takes fewer than "
                          f"{_MAX_ROWS}")
     if m < 1:
         raise ValueError("no keypoints")
+    if (q_olo is None) != (q_ohi is None):
+        raise ValueError("q_olo and q_ohi: both tensors or both None")
+    n_batch = _batch_size(args)
+    nb = 1 if n_batch is None else n_batch
+    qd_b, qg_b, k_b = (_batched(args, g)[0] for g in (_Q_DESC, _Q_GEO, _KP))
+    bq = (nb,) if qd_b else ()
+    bg = (nb,) if qg_b else ()
+    bk = (nb,) if k_b else ()
     qw, kw = _as_words(q_desc), _as_words(kp_desc)
-    _check("q_desc", qw, torch.int32, (n, 8), dev)
-    _check("q_uv", q_uv, torch.float32, (n, 2), dev)
-    _check("q_radius", q_radius, torch.float32, (n,), dev)
-    _check("q_olo", q_olo, torch.int32, (n,), dev)
-    _check("q_ohi", q_ohi, torch.int32, (n,), dev)
-    _check("q_valid", q_valid, torch.bool, (n,), dev)
-    _check("kp_desc", kw, torch.int32, (m, 8), dev)
-    _check("kp_uv", kp_uv, torch.float32, (m, 2), dev)
-    _check("kp_octave", kp_octave, torch.int32, (m,), dev)
-    _check("kp_valid", kp_valid, torch.bool, (m,), dev)
+    radius = 0.0
+    if not torch.is_tensor(q_radius):
+        radius, q_radius = float(q_radius), None
+    _check("q_desc", qw, torch.int32, bq + (n, 8), dev)
+    _check("q_uv", q_uv, torch.float32, bg + (n, 2), dev)
+    if q_radius is not None:
+        _check("q_radius", q_radius, torch.float32, bg + (n,), dev)
+    if q_olo is not None:
+        _check("q_olo", q_olo, torch.int32, bg + (n,), dev)
+        _check("q_ohi", q_ohi, torch.int32, bg + (n,), dev)
+    _check("q_valid", q_valid, torch.bool, bg + (n,), dev)
+    _check("kp_desc", kw, torch.int32, bk + (m, 8), dev)
+    _check("kp_uv", kp_uv, torch.float32, bk + (m, 2), dev)
+    _check("kp_octave", kp_octave, torch.int32, bk + (m,), dev)
+    _check("kp_valid", kp_valid, torch.bool, bk + (m,), dev)
     lib = _library()
-    idx0 = torch.empty(n, dtype=torch.int32, device=dev)
-    d0 = torch.empty(n, dtype=torch.int32, device=dev)
-    d1 = torch.empty(n, dtype=torch.int32, device=dev)
-    key = torch.full((m,), _INT_MAX, dtype=torch.int32, device=dev)
+    # every output from one allocation
+    rows = 3 if raw else 2
+    out = torch.empty(rows * nb * n + (2 * nb * m if raw else 0),
+                      dtype=torch.int32, device=dev)
+    per_row = out[:rows * nb * n].view(rows, nb, n)
+    per_col = out[rows * nb * n:].view(-1, nb, m)
     if n:                             # no queries: nothing to launch
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hamming_top2_launch(
-            qw.data_ptr(), q_uv.data_ptr(), q_radius.data_ptr(),
-            q_olo.data_ptr(), q_ohi.data_ptr(), q_valid.data_ptr(),
-            kw.data_ptr(), kp_uv.data_ptr(), kp_octave.data_ptr(),
-            kp_valid.data_ptr(), n, m, idx0.data_ptr(), d0.data_ptr(),
-            d1.data_ptr(), key.data_ptr(), stream)
+        ws = None
+        if mutual or raw:
+            ws = _workspace(dev, stream, nb * m, nb)
+        err = lib.hamming_search_launch(
+            qw.data_ptr(), q_uv.data_ptr(), _ptr(q_radius), _ptr(q_olo),
+            _ptr(q_ohi), q_valid.data_ptr(), kw.data_ptr(),
+            kp_uv.data_ptr(), kp_octave.data_ptr(), kp_valid.data_ptr(),
+            n, m, nb, int(qd_b), int(qg_b), int(k_b), radius, float(th),
+            float(nn_ratio), int(bool(mutual)), int(bool(raw)),
+            per_row[0].data_ptr(), per_row[1].data_ptr(),
+            per_row[2].data_ptr() if raw else None,
+            per_col[0].data_ptr() if raw else None,
+            per_col[1].data_ptr() if raw else None,
+            None if ws is None else ws.keys.data_ptr(),
+            None if ws is None else ws.counter.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(
-                f"hamming_top2 launch failed: CUDA error {err}")
+                f"hamming_search launch failed: CUDA error {err}")
         # a launch recorded into a CUDA graph under capture runs only when
         # the graph is replayed: the graph runner adds it to `launches` then
         if torch.cuda.is_current_stream_capturing():
             fused_windowed_top2.captured += 1
         else:
             fused_windowed_top2.launches += 1
-    unset = key == _INT_MAX           # every row INF: (INF, first row 0)
-    kp_best_d = torch.where(unset, INF, key >> 16).to(torch.int32)
-    kp_best_q = torch.where(unset, 0, key & 0xFFFF).to(torch.int32)
-    return idx0, d0, d1, kp_best_d, kp_best_q
+    elif raw:                         # a column of INFs: (INF, first row 0)
+        per_col[0].fill_(INF)
+        per_col[1].zero_()
+    outs = tuple(per_row) + (tuple(per_col) if raw else ())
+    if n_batch is None:
+        outs = tuple(o[0] for o in outs)
+    return outs
+
+
+def top2_cuda(*args):
+    """The kernel's raw outputs (same as top2_reference), one launch on the
+    current stream. Inputs must be CUDA tensors of the documented dtypes."""
+    return _search_cuda(args, H.TH_HIGH, 1.0, False, True)
 
 
 def top2(*args):
@@ -229,12 +386,20 @@ def fused_windowed_top2(q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
 
     Semantics identical to the JAX package's fused_windowed_top2 (threshold,
     Lowe ratio, mutual-best dedup). Descriptors: ±1 int8 (N, 256) signs or
-    packed (N, 32) uint8. Returns (idx (N,) int32 with -1 for no match,
-    d0 (N,) int32).
+    packed (N, 32) uint8; the module docstring says what else is accepted.
+    Returns (idx (N,) int32 with -1 for no match, d0 (N,) int32), or
+    (B, N) each for a batched call. On CUDA tensors this is one kernel
+    launch and nothing else.
     """
-    raw = top2(q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
-               kp_signs, kp_uv, kp_octave, kp_valid)
-    return _filter(raw, th, nn_ratio, mutual)
+    args = (q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
+            kp_signs, kp_uv, kp_octave, kp_valid)
+    dev = q_uv.device
+    if dev.type == "cpu":
+        return fused_windowed_top2_reference(*args, th=th, nn_ratio=nn_ratio,
+                                             mutual=mutual)
+    if dev.type == "cuda":
+        return _search_cuda(args, th, nn_ratio, mutual, False)
+    raise ValueError(f"unsupported device {dev}")
 
 
 fused_windowed_top2.launches = 0      # kernel launches that ran
@@ -246,6 +411,11 @@ def fused_windowed_top2_reference(q_signs, q_uv, q_radius, q_olo, q_ohi,
                                   kp_valid, th=H.TH_HIGH, nn_ratio=1.0,
                                   mutual=True):
     """Plain torch version of fused_windowed_top2, on any device."""
-    raw = top2_reference(q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
-                         kp_signs, kp_uv, kp_octave, kp_valid)
-    return _filter(raw, th, nn_ratio, mutual)
+    args = (q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
+            kp_signs, kp_uv, kp_octave, kp_valid)
+    n_batch = _batch_size(args)
+    if n_batch is None:
+        return _filter(_top2_single(*args), th, nn_ratio, mutual)
+    outs = [_filter(_top2_single(*_item(args, b)), th, nn_ratio, mutual)
+            for b in range(n_batch)]
+    return tuple(torch.stack(o) for o in zip(*outs))

@@ -9,6 +9,8 @@ the CPU it calls the step eagerly (that is what the CPU tests exercise).
 Contract on the card:
   * the step is warmed eagerly first (lazy kernel loading, cuBLAS handles
     and the nvcc build of the hand kernel cannot happen inside a capture);
+    the Hamming searches recorded into the graph get a workspace of their
+    own, made before the capture begins;
     tensors named in ``restore`` are saved before and restored after the
     warm-up and the capture, so neither leaves a trace in the state;
   * capture uses ``capture_error_mode="thread_local"``: only the capturing
@@ -28,7 +30,8 @@ import time
 
 import torch
 
-from ..ops.cuda_hamming import fused_windowed_top2, graph_node_count
+from ..ops.cuda_hamming import (capture_workspace, fused_windowed_top2,
+                                graph_node_count)
 
 N_WARMUP = 2
 
@@ -41,6 +44,7 @@ class GraphRunner:
         self.device = torch.device(device)
         self.restore = list(restore)
         self.graph = None
+        self.workspace = None       # the captured searches' workspace
         self.captures = 0
         self.replays = 0
         self.launches_per_replay = 0
@@ -75,8 +79,12 @@ class GraphRunner:
         # and instantiation becomes a step of its own, timed apart
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = fused_windowed_top2.captured
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.step()
+        # the searches recorded here finish through a workspace that lives
+        # and dies with this graph (eager launches keep one per stream)
+        with capture_workspace(self.device) as self.workspace:
+            torch.cuda.synchronize(self.device)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.step()
         self.launches_per_replay = fused_windowed_top2.captured - before
         t1 = time.perf_counter()
         graph.instantiate()

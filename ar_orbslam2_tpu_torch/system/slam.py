@@ -36,8 +36,8 @@ class SlamConfig:
     """The JAX package's SlamConfig, defaults included. Options this port
     does not implement yet raise NotImplementedError at construction — they
     are never silently switched off. Runnable: monocular with
-    ``enable_loop_closing=False, enable_relocalization=False`` and any
-    combination of ``use_fused_tracking`` and ``async_mapping``.
+    ``enable_loop_closing=False`` and any combination of
+    ``enable_relocalization``, ``use_fused_tracking`` and ``async_mapping``.
     """
     sensor: str = MONOCULAR
     map: MapConfig = field(default_factory=MapConfig)
@@ -52,8 +52,6 @@ class SlamConfig:
 
     def __post_init__(self):
         unported = [
-            (self.enable_relocalization, "enable_relocalization=True",
-             "item 2: relocalization"),
             (self.enable_loop_closing, "enable_loop_closing=True",
              "item 3: loop closing"),
             (self.sensor != MONOCULAR, f"sensor={self.sensor}",
@@ -98,6 +96,14 @@ class SlamSystem:
                                   device=self.device)
         self.tracking = Tracking(self.store, self.mapper, cam, cfg.tracking,
                                  device=self.device, seed=seed)
+        self.kfdb = None
+        if cfg.enable_relocalization:
+            from ..estimation.relocalization import Relocalizer
+            from ..loop.place_recognition import KeyFrameDatabase
+            self.kfdb = KeyFrameDatabase(self.store, device=self.device)
+            self.tracking.relocalizer = Relocalizer(
+                self.store, self.mapper, cam, cfg.tracking, kfdb=self.kfdb,
+                device=self.device)
         self._orb_cfg = OrbConfig(n_features=cfg.tracking.max_kp)
         if cfg.use_fused_tracking and cfg.sensor == MONOCULAR:
             from .fused import FusedFrontend
@@ -105,7 +111,8 @@ class SlamSystem:
                 self.store, cam, cfg.tracking, self._orb_cfg, self.device)
         if cfg.async_mapping:
             from ..mapping.async_mapper import AsyncMapper
-            self.tracking.async_mapper = AsyncMapper(self.mapper)
+            self.tracking.async_mapper = AsyncMapper(
+                self.mapper, relocalizer=self.tracking.relocalizer)
         self._next_frame_id = 0
         self.last_frame = None
         self.captures_at_warmup = None      # set by precompile()
@@ -373,10 +380,15 @@ class SlamSystem:
         chunk and per-frame steps, the whole mapping stage), touch the
         async-only paths with dummy-shaped calls (the pipelined device
         refresh, the deferred-keyframe pose re-alignment), then capture
-        this system's own frame step. Legs of the JAX package's precompile
+        this system's own frame step. With a relocalizer the twin is sent
+        LOST once on its last image, so the whole relocalization path
+        (vocabulary matmul, scoring, brute-force search, the batched
+        eigh/svd of the PnP and their cuSOLVER handles, both pose
+        optimizations, the top-up search) has run eagerly before the steady
+        state; none of it is captured. Legs of the JAX package's precompile
         that wait for unported modules (loop closer, vocabulary assignment,
-        pose graph, global BA, relocalizer) are left out; ROADMAP.md lists
-        them under those modules."""
+        pose graph, global BA) are left out; ROADMAP.md lists them under
+        those modules."""
         from ..data import synthetic
         from .tracking import _bound_pose_opt
 
@@ -413,6 +425,10 @@ class SlamSystem:
                                  timestamp=(n_frames + 1 + j) / 30.0)
         t.velocity = None        # forces the reference-keyframe fallback
         twin.track_monocular(imgs[-1], timestamp=(n_frames + 3) / 30.0)
+        if t.relocalizer is not None and twin.store.n_keyframes() > 0:
+            t.state = "LOST"     # the relocalization path, eagerly
+            t.velocity = None
+            twin.track_monocular(imgs[-1], timestamp=(n_frames + 4) / 30.0)
         twin.shutdown()
         del twin, fe
         if self.tracking.fused is not None:

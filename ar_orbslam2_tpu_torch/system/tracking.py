@@ -17,9 +17,17 @@ synchronous mapping) and ``track_fused_chunk_async`` (records of a chunk
 collected by the pipelined caller, mapping on the worker thread: soft and
 hard keyframe tiers, peak-frame choice, the LOST-vs-rescue branch).
 
-Not ported yet: relocalization, loop closing, localization mode and
-stereo/RGB-D (see ROADMAP.md). Without a relocalizer a failed frame goes
-LOST, as it does in the JAX package with relocalization disabled.
+A frame that cannot be tracked, and every frame while LOST, goes to the
+relocalizer (estimation/relocalization.py) when the system has one; the
+fused paths hand such a frame to the per-frame path, and once it has
+relocalized the callers rebuild the fused state from it through the same
+static buffers (no new graph capture). Keyframes are registered in the
+relocalizer's place-recognition database as they are created, on the
+thread that finishes their mapping.
+
+Not ported yet: loop closing, localization mode and stereo/RGB-D (see
+ROADMAP.md). Without a relocalizer a failed frame goes LOST, as it does in
+the JAX package with relocalization disabled.
 """
 from __future__ import annotations
 
@@ -165,13 +173,14 @@ class Tracking:
 
     def __init__(self, store, local_mapper, cam,
                  cfg: TrackingConfig = TrackingConfig(), device=None,
-                 seed=0):
+                 seed=0, relocalizer=None):
         self.store = store
         self.mapper = local_mapper
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seed = seed                    # RANSAC draw of each init attempt
+        self.relocalizer = relocalizer      # set by SlamSystem
         self.fused = None                   # FusedFrontend (image mono path)
         self.async_mapper = None            # AsyncMapper (mapping thread)
         self.only_tracking = False          # localization mode: not ported
@@ -217,9 +226,10 @@ class Tracking:
         ok = False
         if self.state == OK:
             ok, n_inliers = self._track_from_last(frame)
-        if not ok:
-            # relocalization is not ported: the frame is lost
-            n_inliers = 0
+        if self.state == LOST or not ok:
+            ok, n_inliers = self._relocalize(frame)
+            if ok:
+                self.last_reloc_frame_id = frame.frame_id
         if ok:
             ok, n_inliers = self._track_local_map(frame, n_inliers)
 
@@ -278,7 +288,7 @@ class Tracking:
             local_inliers=n_inl, local_visible=int(dev["n_visible"]),
             fused=True, t_track_ms=round(t_step * 1e3, 2))
         if not ok:
-            # one batched readback -> per-frame LOST handling
+            # one batched readback -> per-frame LOST/relocalization handling
             frame = fe.materialize_frame(timestamp, frame_id)
             fe.invalidate()
             self.state = LOST
@@ -375,7 +385,7 @@ class Tracking:
 
         if kf_at < 0 and consumed < C:
             # mid-chunk failure: frames before it are committed, the rest
-            # re-enter through the per-frame path
+            # re-enter through the per-frame path; next frame relocalizes
             fe.invalidate()
             self.state = LOST
             self.velocity = None
@@ -622,6 +632,7 @@ class Tracking:
         if self.store.kf_valid[kf]:
             self.mapper.local_bundle_adjustment(kf)
             self.mapper.cull_keyframes(kf)
+        self._register_kf_in_db(kf)
         return None
 
     def _deferred_kf_insert(self, snaps, j, timestamp, frame_id,
@@ -812,6 +823,8 @@ class Tracking:
         self.last_kf_frame_id = f1.frame_id
         self.state = OK
         self.init_frame = None
+        self._register_kf_in_db(kf0)
+        self._register_kf_in_db(kf1)
 
     # ------------------------------------------------------------------
     # frame-to-frame tracking
@@ -1032,6 +1045,26 @@ class Tracking:
             frame.set_pose(self.store.kf_R[kf], self.store.kf_t[kf])
         self._dbg.update({k: v for k, v in self.mapper.last_stats.items()
                           if k.startswith("t_")})
+        t0 = time.perf_counter()
+        self._register_kf_in_db(kf)
+        self._dbg["t_loop_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+
+    def _register_kf_in_db(self, kf: int):
+        """Add a keyframe to the place-recognition database (loop detection
+        is not ported: the relocalizer's database is the only one)."""
+        if self.relocalizer is not None and \
+                self.relocalizer.kfdb is not None:
+            self.relocalizer.kfdb.add(kf)
+
+    # ------------------------------------------------------------------
+    def _relocalize(self, frame: Frame):
+        if self.relocalizer is None:
+            return False, 0
+        out = self.relocalizer.relocalize(frame)
+        self._dbg["reloc"] = dict(self.relocalizer.last_stats)
+        if out is None:
+            return False, 0
+        return True, out
 
     # ------------------------------------------------------------------
     def reset(self):

@@ -13,9 +13,14 @@ non-zero before the final line):
   3. kernel   — the kernel against its plain torch version on the card, at
                 the main path's shapes (1024/2048/4096 queries x 1024
                 keypoints) plus a ragged shape, on tie-free and tie-heavy
-                inputs: every output must be bit-identical; the device time
-                of both (calls queued behind a sleep kernel, CUDA events) and
-                the time a caller waits for one call;
+                inputs: the raw outputs and the filtered (idx, d0) for
+                mutual in {on, off} x ratio in {1.0, 0.8}, each twice in a
+                row on one workspace, must be bit-identical; a batch of 5
+                searches in one launch against 5 single launches; at most 3
+                device kernels per search call (torch.profiler, in one
+                session after every other phase has run); the device
+                time of both versions (calls queued behind a sleep kernel,
+                CUDA events) and the time a caller waits for one call;
   4. main     — the 640x480 monocular sequence through
                 SlamSystem.track_monocular_batch on the card, per-frame
                 path: state OK, >= 90% of frames after init tracked, >= 3
@@ -35,7 +40,22 @@ non-zero before the final line):
                 aligned ATE < 0.05 on the returned poses, on the exported
                 trajectory and on the keyframe trajectory, no reset, a
                 healthy mapping worker, no graph captured after warm-up, and
-                the kernel launched at least twice per fused frame.
+                the kernel launched at least twice per fused frame;
+  7. reloc    — the same configuration with relocalization on
+                (SlamConfig(use_fused_tracking=True, async_mapping=True,
+                enable_relocalization=True), 1024 keypoints, 4096-landmark
+                bundle, 4096-word vocabulary): a wider sweep is tracked
+                until the map holds more keyframes than the early-loss reset
+                limit, 8 uniform grey frames make the tracker lose the scene
+                by itself, then the sequence resumes at an earlier
+                viewpoint: LOST during the gap and no reset, OK within 3
+                frames of resuming, the relocalized camera centre within
+                0.05 of ground truth under the sim3 alignment fitted before
+                the gap, >= 50 inliers, >= 90% tracked after recovery, no
+                graph captured after warm-up, a healthy worker, the kernel
+                launched in every successful relocalization; prints ms per
+                attempt by stage, candidates, matches, inliers and host
+                synchronisations.
 
 The kernel's `bound_ms` is the least time the card could take for the
 timed call: the larger of its bytes (every input read once, every output
@@ -70,6 +90,14 @@ FUSED_FRAMES = 128         # phase 6: 15 chunks of 8 after init
 FUSED_MOTION = 0.25        # phase 6: sweep amplitude of the camera path
 CHUNK = 8
 GRAPH_POSE_TOL = 1e-5      # graph replay vs the same step run eagerly
+MAX_WRAPPER_KERNELS = 3    # device kernels one search call may cost
+BATCH = 5                  # phase 3: searches in the batched launch
+RELOC_MOTION = 0.6         # phase 7: sweep amplitude (wider: more keyframes)
+RELOC_FRAMES = 160         # phase 7: frames of the rendered sweep
+RELOC_GAP_AT = 96          # phase 7: frames tracked before the grey gap
+RELOC_GREY = 8             # phase 7: uniform grey frames (one chunk)
+RELOC_BACK = 40            # phase 7: resume this many frames earlier
+RELOC_CENTRE_GATE = 0.05   # phase 7: relocalized centre vs ground truth
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12
 N_SM = 132
@@ -178,10 +206,66 @@ def median_ms(torch, fn, repeats=REPEATS, warmup=5):
     return times[len(times) // 2]
 
 
+def device_kernels(torch, fns):
+    """The device kernels each call in `fns` launches, by torch.profiler:
+    a list of {name: (count, us)}. ONE profiler session covers all the
+    calls (a third session in a process recorded nothing on this stack);
+    a marker kernel before each call and after the last splits the device
+    events, which one stream runs in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if not ev:
+        fail("the profiler recorded no device activity")
+    marker = ev[0].name
+    if sum(1 for e in ev if e.name == marker) != len(fns) + 1:
+        fail(f"profiler: {len(fns) + 1} markers expected, device events: "
+             f"{[e.name for e in ev]}")
+    out = []
+    for e in ev:
+        if e.name == marker:
+            out.append({})
+        else:
+            n, t = out[-1].get(e.name, (0, 0.0))
+            out[-1][e.name] = (n + 1, t + e.device_time)
+    return out[:len(fns)]
+
+
+def batched_inputs(torch, CH, n, m, n_batch, seed):
+    """One packed query descriptor set against n_batch keypoint sets, each
+    with its own query geometry (the fuse's shape)."""
+    items = [make_inputs(torch, n, m, b % 2 == 1, seed + b)
+             for b in range(n_batch)]
+    keys = list(items[0])
+    args = [CH.H.packed_from_signs(items[0]["q_signs"])]
+    for k in keys[1:]:
+        t = torch.stack([it[k] for it in items])
+        args.append(CH.H.packed_from_signs(t) if k == "kp_signs" else t)
+    return args
+
+
 def check_kernel(torch, CH):
     """Phase 3. Returns the kernel record for the JSON line."""
+    from ar_orbslam2_tpu_torch.matching import matcher
     worst = 0
     timings = {}
+    profiled = {}           # tag -> a search call, profiled in one session
+
+    def gap(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
     for n, m in SHAPES:
         for ties in (False, True):
             x = make_inputs(torch, n, m, ties, seed=n + m + ties)
@@ -191,22 +275,33 @@ def check_kernel(torch, CH):
             torch.cuda.synchronize()
             names = ("idx0", "d0", "d1", "kp_best_d", "kp_best_q")
             for name, a, b in zip(names, got, want):
-                err = int((a.long() - b.long()).abs().max())
+                err = gap(a, b)
                 worst = max(worst, err)
                 if err:
                     fail(f"kernel != plain at {(n, m)} ties={ties}: {name} "
                          f"differs in {int((a != b).sum())} entries")
+            n_match = 0
             for mutual in (False, True):
-                idx_k, d0_k = CH.fused_windowed_top2(
-                    *args, th=100, nn_ratio=0.9, mutual=mutual)
-                idx_r, d0_r = CH.fused_windowed_top2_reference(
-                    *args, th=100, nn_ratio=0.9, mutual=mutual)
-                if not (torch.equal(idx_k, idx_r) and torch.equal(d0_k, d0_r)):
-                    fail(f"filtered idx differs at {(n, m)} ties={ties} "
-                         f"mutual={mutual}")
-            n_match = int((idx_k >= 0).sum())
+                for ratio in (1.0, 0.8):
+                    want = CH.fused_windowed_top2_reference(
+                        *args, th=100, nn_ratio=ratio, mutual=mutual)
+                    # twice in a row: the first call must leave the
+                    # workspace as it found it
+                    for call in (1, 2):
+                        got = CH.fused_windowed_top2(
+                            *args, th=100, nn_ratio=ratio, mutual=mutual)
+                        torch.cuda.synchronize()
+                        for name, a, b in zip(("idx", "d0"), got, want):
+                            worst = max(worst, gap(a, b))
+                            if not torch.equal(a, b):
+                                fail(f"filtered {name} differs at {(n, m)} "
+                                     f"ties={ties} mutual={mutual} "
+                                     f"nn_ratio={ratio} call={call}")
+                    n_match = int((got[0] >= 0).sum())
             phase("kernel-check", shape=f"{n}x{m}", ties=ties,
-                  bit_identical=True, matches=n_match)
+                  raw_bit_identical=True, filtered_bit_identical=True,
+                  filters="mutual{F,T}xratio{1.0,0.8}x2calls",
+                  matches=n_match)
         x = make_inputs(torch, n, m, False, seed=7)
         args = tuple(x.values())
         # the main path hands the kernel packed descriptors (Frame /
@@ -214,25 +309,81 @@ def check_kernel(torch, CH):
         pk = list(args)
         pk[0] = CH.H.packed_from_signs(args[0])
         pk[6] = CH.H.packed_from_signs(args[6])
-        fns = {"kernel": lambda: CH.top2_cuda(*pk),
+        fns = {"raw": lambda: CH.top2_cuda(*pk),
                "plain": lambda: CH.top2_reference(*pk),
                "wrapper": lambda: CH.fused_windowed_top2(*pk),
+               "wrapper_not_mutual": lambda: CH.fused_windowed_top2(
+                   *pk, mutual=False),
                "plain_wrapper": lambda: CH.fused_windowed_top2_reference(
                    *pk)}
         dev = {k: device_ms(torch, f) for k, f in fns.items()}
         wall = {k: median_ms(torch, fns[k])
                 for k in ("wrapper", "plain_wrapper")}
         timings[(n, m)] = (dev["wrapper"], dev["plain_wrapper"])
+        profiled[f"{n}x{m}"] = fns["wrapper"]
         if (n, m) == (4096, 1024):
-            timings["kernel_only"] = dev["kernel"]
+            timings["raw"] = dev["raw"]
         phase("kernel-time", shape=f"{n}x{m}",
               **{f"{k}_device_ms": f"{v:.4f}" for k, v in dev.items()},
               **{f"{k}_call_ms": f"{v:.4f}" for k, v in wall.items()},
               device_repeats=f"9x{QUEUED_CALLS}", call_repeats=REPEATS)
+
+    # the matcher's entry with a scalar radius and no octave gate: no
+    # constant tensors around the launch
+    x = make_inputs(torch, 1024, 1024, False, seed=7)
+    q_packed = CH.H.packed_from_signs(x["q_signs"])
+    k_packed = CH.H.packed_from_signs(x["kp_signs"])
+
+    def scalar_call():
+        return matcher.windowed_match(
+            x["q_uv"], q_packed, x["q_valid"], 30.0, x["kp_uv"], k_packed,
+            x["kp_octave"], x["kp_valid"], th=50, nn_ratio=0.9)
+    got = scalar_call()
+    want = CH.fused_windowed_top2_reference(
+        q_packed, x["q_uv"], 30.0, None, None, x["q_valid"], k_packed,
+        x["kp_uv"], x["kp_octave"], x["kp_valid"], th=50, nn_ratio=0.9)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("scalar-radius / ungated search differs from the plain version")
+    profiled["scalar_radius_ungated_1024x1024"] = scalar_call
+
+    # a batch: one launch against B single launches and the plain version
+    bargs = batched_inputs(torch, CH, 4096, 1024, BATCH, seed=90)
+    before = CH.fused_windowed_top2.launches
+    got = CH.fused_windowed_top2(*bargs, th=50, nn_ratio=1.0)
+    raw = CH.top2_cuda(*bargs)
+    torch.cuda.synchronize()
+    if CH.fused_windowed_top2.launches != before + 2:
+        fail("a batched call is not one launch")
+    singles = []
+    for b in range(BATCH):
+        item = CH._item(bargs, b)
+        single = CH.fused_windowed_top2(*item, th=50, nn_ratio=1.0)
+        want = CH.fused_windowed_top2_reference(*item, th=50, nn_ratio=1.0)
+        raw_want = CH.top2_reference(*item)
+        torch.cuda.synchronize()
+        singles.append(item)
+        for g, s_, w in zip(got, single, want):
+            worst = max(worst, gap(g[b], w))
+            if not (torch.equal(g[b], s_) and torch.equal(s_, w)):
+                fail(f"batched search: item {b} differs")
+        for g, w in zip(raw, raw_want):
+            if not torch.equal(g[b], w):
+                fail(f"batched raw search: item {b} differs")
+    batch_ms = device_ms(torch, lambda: CH.fused_windowed_top2(
+        *bargs, th=50, nn_ratio=1.0))
+    singles_ms = device_ms(torch, lambda: [CH.fused_windowed_top2(
+        *item, th=50, nn_ratio=1.0) for item in singles])
+    phase("kernel-batch", shape=f"{BATCH}x4096x1024", bit_identical=True,
+          one_launch_device_ms=f"{batch_ms:.4f}",
+          single_launches_device_ms=f"{singles_ms:.4f}")
+    profiled[f"batch_{BATCH}x4096x1024"] = lambda: CH.fused_windowed_top2(
+        *bargs, th=50, nn_ratio=1.0)
+
     ms, plain = timings[(4096, 1024)]
     bound = kernel_bound(torch, make_inputs(torch, 4096, 1024, False, seed=7))
     phase("kernel-bound", shape="4096x1024", **bound)
-    return dict(name="hamming_top2", route="cuda",
+    return profiled, dict(name="hamming_search", route="cuda",
                 source="ar_orbslam2_tpu_torch/csrc/cuda_hamming.cu",
                 replaces="ar_orbslam2_tpu/ops/pallas_hamming.py:39",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
@@ -241,10 +392,37 @@ def check_kernel(torch, CH):
                 gate_density=bound["gate_density"],
                 sm_clock_mhz=bound["sm_clock_mhz"],
                 library_ms=None,    # no single PyTorch call computes this
-                kernel_only_ms=timings["kernel_only"],
+                raw_ms=timings["raw"],
+                kernel_us_profiler=None,        # set by profile_searches
+                device_kernels_per_call=None,   # set by profile_searches
+                batch_ms=batch_ms, batch_singles_ms=singles_ms,
                 timed="device ms per fused_windowed_top2 call at 4096x1024,"
-                      " packed descriptors (kernel + key decode + filter);"
-                      " kernel_only_ms is the launch alone (top2_cuda)")
+                      " packed descriptors: one launch (search + threshold +"
+                      " ratio + mutual-best); raw_ms is the launch with raw"
+                      " outputs (top2_cuda); batch_ms one launch of"
+                      f" {BATCH} searches, batch_singles_ms {BATCH} launches")
+
+
+def profile_searches(torch, profiled, rec):
+    """Phase 3's last check, run after every other phase: device kernels
+    per search call, the launch and nothing around it. (Once a profiler
+    session has run in a process, launching a 47,850-node graph costs the
+    host tens of ms, which would falsify the phases that time replays.)"""
+    for tag, kernels in zip(profiled, device_kernels(
+            torch, list(profiled.values()))):
+        n_kernels = sum(c for c, _ in kernels.values())
+        ours = [v for k, v in kernels.items() if "hamming_search" in k]
+        if len(ours) != 1 or ours[0][0] != 1:
+            fail(f"{tag}: a search call did not launch the kernel once: "
+                 f"{kernels}")
+        if n_kernels > MAX_WRAPPER_KERNELS:
+            fail(f"{tag}: a search call is {n_kernels} device kernels "
+                 f"(> {MAX_WRAPPER_KERNELS}): {sorted(kernels)}")
+        if tag == "4096x1024":
+            rec["kernel_us_profiler"] = ours[0][1]
+            rec["device_kernels_per_call"] = n_kernels
+        phase("kernel-profile", call=tag, device_kernels=n_kernels,
+              kernel_us=f"{ours[0][1]:.2f}")
 
 
 def sm_clock_mhz(which="clocks.max.sm"):
@@ -265,7 +443,7 @@ def kernel_bound(torch, x):
     the inputs `x` (see the module docstring)."""
     n, m = x["q_uv"].shape[0], x["kp_uv"].shape[0]
     in_bytes = (n * (32 + 8 + 4 + 4 + 4 + 1) + m * (32 + 8 + 4 + 1))
-    out_bytes = 3 * n * 4 + m * 4
+    out_bytes = 2 * n * 4           # idx and d0
     du = (x["q_uv"][:, None, 0] - x["kp_uv"][None, :, 0]).abs()
     dv = (x["q_uv"][:, None, 1] - x["kp_uv"][None, :, 1]).abs()
     r = x["q_radius"][:, None]
@@ -713,7 +891,172 @@ def run_fused_path(torch, CH):
     return launches
 
 
+def reloc_config():
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig
+    return SlamConfig(use_fused_tracking=True, async_mapping=True,
+                      enable_loop_closing=False, enable_relocalization=True)
+
+
+def run_reloc_path(torch, CH):
+    """Phase 7: the tracker loses the scene by itself (grey frames), then
+    relocalizes at an earlier viewpoint of the sequence, at full width."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.eval.ate import align_umeyama
+    from ar_orbslam2_tpu_torch.system.slam import SlamSystem
+
+    motion, frames, gap_at = RELOC_MOTION, RELOC_FRAMES, RELOC_GAP_AT
+    cam, imgs, R_cw, t_cw = make_sequence(frames, motion)
+    grey = np.full_like(imgs[0], 128)
+    resume = gap_at - RELOC_BACK
+    # source frame of every fed image (-1: grey)
+    src = list(range(gap_at)) + [-1] * RELOC_GREY \
+        + list(range(resume, frames))
+    feed = [grey if i < 0 else imgs[i] for i in src]
+    slam = SlamSystem(cam, reloc_config(), device="cuda")
+    t, rel = slam.tracking, slam.tracking.relocalizer
+    limit = t.cfg.reset_if_lost_before_kfs
+    t0 = time.perf_counter()
+    slam.precompile()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    attempts = []                   # (fed index, stats, launches, ms)
+    relocalize = rel.relocalize
+
+    def watched(frame):
+        torch.cuda.synchronize()
+        before = CH.fused_windowed_top2.launches
+        t1 = time.perf_counter()
+        out = relocalize(frame)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        attempts.append((frame.frame_id, dict(rel.last_stats),
+                         CH.fused_windowed_top2.launches - before, ms))
+        return out
+    rel.relocalize = watched
+
+    torch.cuda.reset_peak_memory_stats()
+    CH.fused_windowed_top2.launches = 0
+    t0 = time.perf_counter()
+    poses = slam.track_monocular_batch(
+        feed, timestamps=[i / 30.0 for i in range(len(feed))], chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = CH.fused_windowed_top2.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    slam.shutdown()
+    am = t.async_mapper
+
+    m = t.metrics
+    by_fid = {r["frame_id"]: r for r in m}
+    n_kf_at_gap = max((r["n_kf"] for r in m if r["frame_id"] < gap_at),
+                      default=0)
+    gap_ids = range(gap_at, gap_at + RELOC_GREY)
+    gap_states = [by_fid[i]["state"] if i in by_fid else "?" for i in gap_ids]
+    after_ids = list(range(gap_at + RELOC_GREY, len(feed)))
+    ok_after = [poses[i] is not None for i in after_ids]
+    first_ok = ok_after.index(True) if any(ok_after) else None
+    good = [a for a in attempts if a[1].get("ok")]
+    failed_ms = [a[3] for a in attempts if not a[1].get("ok")]
+
+    # sim3 alignment of the returned poses before the gap
+    gt_c = -(np.swapaxes(R_cw, -1, -2) @ t_cw[..., None])[..., 0]
+    pre = [i for i in range(gap_at) if poses[i] is not None]
+    est_pre = np.array([-(poses[i][:3, :3].T @ poses[i][:3, 3]) for i in pre])
+    sc, Ra, ta = align_umeyama(est_pre, gt_c[pre], with_scale=True) \
+        if len(pre) >= 3 else (1.0, np.eye(3), np.zeros(3))
+
+    def centre_error(i):
+        c = -(poses[i][:3, :3].T @ poses[i][:3, 3])
+        return float(np.linalg.norm(sc * Ra @ c + ta - gt_c[src[i]]))
+    err_first = centre_error(after_ids[first_ok]) if first_ok is not None \
+        else float("nan")
+    errs_after = [centre_error(i) for i, ok in zip(after_ids, ok_after) if ok]
+    tracked_after = ok_after[first_ok:] if first_ok is not None else []
+    share = sum(tracked_after) / max(len(tracked_after), 1)
+
+    stage_keys = ("t_bow_ms", "t_candidates_ms", "t_match_ms", "t_pnp_ms",
+                  "t_pose_opt_ms", "t_topup_ms", "t_total_ms")
+    st = good[0][1] if good else {}
+    phase("reloc-path", motion=motion, sequence_frames=frames,
+          frames_before_gap=gap_at, grey_frames=RELOC_GREY,
+          resume_at_source_frame=resume, fed_frames=len(feed),
+          precompile_s=f"{warm_s:.2f}",
+          keyframes_at_gap=n_kf_at_gap, reset_limit=limit,
+          gap_states="".join(x[0] for x in gap_states), resets=t.n_resets,
+          ok_after_resume_frames=first_ok,
+          centre_error_relocalized=f"{err_first:.5f}",
+          centre_error_after_max=(f"{max(errs_after):.5f}" if errs_after
+                                  else "none"),
+          tracked_after_recovery=f"{sum(tracked_after)}/{len(tracked_after)}",
+          state=t.state, keyframes=slam.store.n_keyframes(),
+          attempts=len(attempts), attempts_ok=len(good),
+          failed_attempt_ms_median=(
+              f"{percentile(failed_ms, 0.5):.2f}" if failed_ms else "none"),
+          worker_processed=am.n_processed, worker_error=am.error,
+          captures_after_warmup=slam.captures_after_warmup,
+          kernel_launches=launches, wall_s=f"{wall:.2f}",
+          peak_device_mib=f"{peak_mib:.1f}")
+    for fid, stats, n_launch, ms in good:
+        phase("reloc-attempt", frame=fid, ms=f"{ms:.2f}",
+              candidates=stats["candidates"], tried=stats["tried"],
+              keyframe=stats["kf"], matches=stats["matches"],
+              pnp_inliers=stats["pnp_inliers"],
+              refine_inliers=stats["refine_inliers"],
+              final_inliers=stats["final_inliers"],
+              host_syncs=stats["syncs"], kernel_launches=n_launch,
+              **{k: f"{stats[k]:.2f}" for k in stage_keys})
+    # the PnP's batched factorizations at the path's shapes, alone
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a12 = torch.randn(256, 12, 12, device="cuda", generator=g)
+    a12 = a12 @ a12.transpose(-1, -2)
+    a3 = torch.randn(256, 3, 3, device="cuda", generator=g)
+    eigh_ms = median_ms(torch, lambda: torch.linalg.eigh(a12), 20)
+    svd_ms = median_ms(torch, lambda: torch.linalg.svd(a3), 20)
+    phase("reloc-linalg", eigh_256x12x12_call_ms=f"{eigh_ms:.4f}",
+          svd_256x3x3_call_ms=f"{svd_ms:.4f}",
+          timed="CUDA events around one call, host launch cost included")
+    print(f"[reloc-timeline] {timeline(m)}", flush=True)
+
+    if n_kf_at_gap <= limit:
+        fail(f"reloc-path: {n_kf_at_gap} keyframes at the gap, the early-"
+             f"loss reset needs more than {limit}")
+    if t.n_resets != 0:
+        fail(f"reloc-path: {t.n_resets} resets")
+    if any(x != "LOST" for x in gap_states):
+        fail(f"reloc-path: states during the gap {gap_states}")
+    if first_ok is None or first_ok >= 3:
+        fail(f"reloc-path: not OK within 3 frames of resuming ({first_ok})")
+    if not good:
+        fail("reloc-path: no relocalization succeeded")
+    if not err_first < RELOC_CENTRE_GATE:
+        fail(f"reloc-path: relocalized centre {err_first:.4f} from ground "
+             f"truth (>= {RELOC_CENTRE_GATE})")
+    if st["final_inliers"] < 50:
+        fail(f"reloc-path: {st['final_inliers']} inliers < 50")
+    if share < TRACKED_SHARE_GATE or t.state != "OK":
+        fail(f"reloc-path: tracked share after recovery {share:.3f}, "
+             f"state {t.state}")
+    if slam.captures_after_warmup != 0:
+        fail(f"reloc-path: {slam.captures_after_warmup} graph captures "
+             "after warm-up")
+    if am.error is not None or am.n_processed < 1:
+        fail(f"reloc-path: worker error={am.error!r} "
+             f"processed={am.n_processed}")
+    if any(n_launch < 1 for _, _, n_launch, _ in good):
+        fail("reloc-path: a relocalization did not launch the kernel")
+    return launches
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases of 3-7 to run alone, for "
+                         "development (the result lines are then withheld)")
+    opts = ap.parse_args()
+    only = {int(x) for x in opts.phases.split(",") if x}
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -748,19 +1091,34 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
+    def wanted(n):
+        return not only or n in only
+
     # 3. kernel vs plain version
-    rec = check_kernel(torch, CH)
+    profiled, rec = check_kernel(torch, CH) if wanted(3) else ({}, {})
 
     # 4. per-frame main path
-    launches = run_main_path(torch, CH)
+    launches = run_main_path(torch, CH) if wanted(4) else 0
 
     # 5. graph replay vs eager
-    run_graph_check(torch, CH)
+    if wanted(5):
+        run_graph_check(torch, CH)
 
     # 6. fused, chunked, pipelined main path
-    launches += run_fused_path(torch, CH)
+    if wanted(6):
+        launches += run_fused_path(torch, CH)
+
+    # 7. loss and relocalization on the fused, pipelined path
+    if wanted(7):
+        launches += run_reloc_path(torch, CH)
     rec["launches"] = launches
     torch.cuda.synchronize()
+    if profiled:                # the profiler last: see profile_searches
+        profile_searches(torch, profiled, rec)
+    if only:
+        print(f"phases {sorted(only)} passed; run without --phases for "
+              "the result lines", flush=True)
+        return
 
     print(card_line, flush=True)
     print(json.dumps({"kernels": [rec]}), flush=True)

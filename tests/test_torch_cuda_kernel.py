@@ -169,3 +169,131 @@ def test_graph_replay_runs_the_kernel_and_counts_it(cuda_device):
         assert torch.equal(out, want)
     assert int(calls) == 2 and runner.replays == 2 and runner.captures == 1
     assert CH.fused_windowed_top2.launches == launched + 2
+
+
+def _batched_problem(n, m, n_batch, seed, device):
+    """One query descriptor set against n_batch keypoint sets, each with its
+    own query geometry: the fuse's shape (one landmark bundle projected
+    into several keyframes)."""
+    items = [_torch(_problem(n, m, b % 2 == 1, seed=seed + b), device)
+             for b in range(n_batch)]
+    args = []
+    for i in range(10):
+        args.append(items[0][0] if i == 0
+                    else torch.stack([it[i] for it in items]))
+    return args
+
+
+def test_batched_plain_version_is_single_calls_stacked():
+    args = _batched_problem(48, 40, 3, seed=30, device="cpu")
+    for mutual in (False, True):
+        got = CH.fused_windowed_top2(*args, nn_ratio=0.8, mutual=mutual)
+        assert got[0].shape == got[1].shape == (3, 48)
+        for b in range(3):
+            want = CH.fused_windowed_top2_reference(
+                *CH._item(args, b), nn_ratio=0.8, mutual=mutual)
+            assert torch.equal(got[0][b], want[0])
+            assert torch.equal(got[1][b], want[1])
+    raw = CH.top2(*args)
+    for b in range(3):
+        for a, w in zip(raw, CH.top2_reference(*CH._item(args, b))):
+            assert torch.equal(a[b], w)
+
+
+def test_scalar_radius_and_no_octave_gate_equal_the_tensor_forms():
+    args = _torch(_problem(40, 30, False, seed=31))
+    n = 40
+    full = list(args)
+    full[2] = torch.full((n,), 12.5)
+    full[3] = torch.full((n,), -(10 ** 6), dtype=torch.int32)
+    full[4] = torch.full((n,), 10 ** 6, dtype=torch.int32)
+    short = list(args)
+    short[2], short[3], short[4] = 12.5, None, None
+    for a, b in zip(CH.fused_windowed_top2(*short),
+                    CH.fused_windowed_top2(*full)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("nn_ratio", [1.0, 0.8])
+@pytest.mark.parametrize("mutual", [False, True])
+def test_fused_filter_matches_plain_on_card(cuda_device, mutual, nn_ratio,
+                                            ties):
+    """Threshold, ratio and mutual-best run inside the one launch and give
+    the plain version's (idx, d0) exactly, twice in a row on one workspace
+    (the kernel leaves it reset)."""
+    for n, m in ((4096, 1024), (1000, 997), (64, 2500)):
+        args = _torch(_problem(n, m, ties, seed=n + 5), cuda_device)
+        want = CH.fused_windowed_top2_reference(*args, nn_ratio=nn_ratio,
+                                                mutual=mutual)
+        for _ in range(2):
+            got = CH.fused_windowed_top2(*args, nn_ratio=nn_ratio,
+                                         mutual=mutual)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_workspace_is_left_reset_on_card(cuda_device):
+    args = _torch(_problem(2048, 1024, True, seed=41), cuda_device)
+    CH.fused_windowed_top2(*args)
+    CH.top2_cuda(*args)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    ws = CH._STREAM_WS[(args[1].device.index, stream)]
+    assert bool((ws.keys == 2 ** 31 - 1).all())
+    assert bool((ws.counter == 0).all())
+
+
+@pytest.mark.cuda
+def test_batched_launch_matches_single_calls_on_card(cuda_device):
+    """B = 5 searches in one launch (grid.y) equal five single launches and
+    the plain version; the launch count rises by one."""
+    args = _batched_problem(2048, 1024, 5, seed=50, device=cuda_device)
+    args[0] = TH.packed_from_signs(args[0])
+    args[6] = TH.packed_from_signs(args[6])
+    before = CH.fused_windowed_top2.launches
+    got = CH.fused_windowed_top2(*args, th=50, nn_ratio=1.0)
+    raw = CH.top2_cuda(*args)
+    torch.cuda.synchronize()
+    assert CH.fused_windowed_top2.launches == before + 2
+    for b in range(5):
+        item = CH._item(args, b)
+        single = CH.fused_windowed_top2(*item, th=50, nn_ratio=1.0)
+        want = CH.fused_windowed_top2_reference(*item, th=50, nn_ratio=1.0)
+        for g, s_, w in zip(got, single, want):
+            assert torch.equal(g[b], s_) and torch.equal(s_, w)
+        for g, w in zip(raw, CH.top2_reference(*item)):
+            assert torch.equal(g[b], w)
+
+
+@pytest.mark.cuda
+def test_scalar_radius_and_no_octave_gate_on_card(cuda_device):
+    args = _torch(_problem(1024, 1024, False, seed=61), cuda_device)
+    args[2], args[3], args[4] = 30.0, None, None
+    got = CH.fused_windowed_top2(*args, nn_ratio=0.9)
+    want = CH.fused_windowed_top2_reference(*args, nn_ratio=0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_unaligned_inputs_on_card(cuda_device):
+    """Keypoint arrays that start off a 16-byte boundary take the kernel's
+    plain-load staging and give the same result."""
+    args = _torch(_problem(512, 301, False, seed=71), cuda_device)
+    args[0] = TH.packed_from_signs(args[0])
+    args[6] = TH.packed_from_signs(args[6])
+    want = CH.fused_windowed_top2_reference(*args)
+    shifted = list(args)
+    for i in (7, 8, 9):             # a view one row into a larger buffer
+        buf = torch.cat([args[i][:1], args[i]])
+        shifted[i] = buf[1:]
+    flat = torch.cat([args[6].new_zeros(4), args[6].reshape(-1)])
+    shifted[6] = flat[4:].view(301, 32)         # 4 bytes off the boundary
+    assert shifted[6].data_ptr() % 16 == 4
+    got = CH.fused_windowed_top2(*shifted)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

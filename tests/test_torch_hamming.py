@@ -118,3 +118,22 @@ def test_packed_descriptors_give_the_same_result():
     packed[6] = TH.packed_from_signs(args[6])
     got = CH.fused_windowed_top2_reference(*packed)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("force", ["xla", "pallas"])
+def test_batched_reference_matches_jax_entry_per_item(force):
+    """A batched call of the plain version (one query descriptor set, B
+    stacked query geometries and keypoint sets: the fuse's shape) equals
+    the JAX entry called once per item, on its XLA path and on the Pallas
+    kernel in interpret mode."""
+    from test_torch_cuda_kernel import _batched_problem
+    args = _batched_problem(128, 128, 3, seed=40, device="cpu")
+    idx_t, d0_t = CH.fused_windowed_top2(*args, th=JH.TH_LOW, nn_ratio=1.0)
+    assert idx_t.shape == (3, 128)
+    for b in range(3):
+        item = [a.numpy() for a in CH._item(args, b)]
+        idx_j, d0_j = jax_top2(*_jax(item), th=JH.TH_LOW, nn_ratio=1.0,
+                               mutual=True, force=force)
+        np.testing.assert_array_equal(idx_t[b].numpy(), np.asarray(idx_j))
+        np.testing.assert_array_equal(d0_t[b].numpy(), np.asarray(d0_j))
+    assert (idx_t >= 0).sum() > 10

@@ -25,6 +25,9 @@ names = [m.name for m in pkgutil.walk_packages(
     ar_orbslam2_tpu_torch.__path__, "ar_orbslam2_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for new in ("loop.place_recognition", "estimation.pnp",
+            "estimation.relocalization"):
+    assert "ar_orbslam2_tpu_torch." + new in names, new
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ar_orbslam2_tpu")]

@@ -149,10 +149,11 @@ def test_trajectory_exports(port_run, tmp_path):
 
 
 def test_unported_options_raise():
-    for opt in ("enable_loop_closing", "enable_relocalization"):
+    for opt in ("enable_loop_closing",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlamConfig(**dict(SLICE, **{opt: True}))
-    for opt in ("use_fused_tracking", "async_mapping"):      # ported
+    for opt in ("use_fused_tracking", "async_mapping",
+                "enable_relocalization"):                     # ported
         assert getattr(SlamConfig(**dict(SLICE, **{opt: True})), opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamConfig(sensor="STEREO", **SLICE)
