@@ -1,8 +1,9 @@
 """Lie groups SO(3) / SE(3) in torch.
 
-Port of ar_orbslam2_tpu/core/lie.py (the Sim(3) half is ported with loop
-closing). Everything is batch-first float32 with the small-angle Taylor
-branches expressed as ``torch.where`` (no data-dependent control flow).
+Port of ar_orbslam2_tpu/core/lie.py: SO(3), SE(3), and the Sim(3) half
+that loop closing uses. Everything is batch-first float32 with the
+small-angle Taylor branches expressed as ``torch.where`` (no data-dependent
+control flow).
 
 Conventions (identical to the JAX package)
 -----------------------------------------
@@ -12,6 +13,8 @@ Conventions (identical to the JAX package)
 * Quaternions are ``(x, y, z, w)`` to match TUM trajectory format.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -110,6 +113,65 @@ def se3_log(R, t):
 def se3_mul(Ra, ta, Rb, tb):
     """(Ra, ta) ∘ (Rb, tb): first apply b, then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+# ---------------------------------------------------------------------------
+# Sim(3) — similarity transforms x' = s * R @ x + t (g2o's Sim3, used by
+# loop closing and the essential graph)
+# ---------------------------------------------------------------------------
+def _sim3_W(omega, sigma, n_terms=24):
+    """W(omega, sigma) = int_0^1 e^{sigma u} exp(u hat(omega)) du.
+
+    sigma*I commutes with hat(omega), so this is the phi_1 matrix function
+    phi1(M) = sum_n M^n/(n+1)! of M = sigma*I + hat(omega), evaluated as a
+    truncated Horner series: branch-free and smooth under forward-mode
+    differentiation (the closed-form coefficients cancel catastrophically
+    in float32 near theta = 0 / sigma = 0), accurate to float32 eps for
+    |theta| <= pi with 24 terms.
+    """
+    I = _eye3(omega, omega.shape[:-1] + (3, 3))
+    M = hat(omega) + sigma[..., None, None] * I
+    P = I * (1.0 / math.factorial(n_terms + 1))
+    for n in range(n_terms - 1, -1, -1):
+        P = I * (1.0 / math.factorial(n + 1)) + M @ P
+    return P
+
+
+def sim3_exp(v):
+    """Sim3 exponential. v = (rho, omega, sigma) (..., 7) -> (R, t, s),
+    t = W(omega, sigma) @ rho."""
+    rho, omega, sigma = v[..., :3], v[..., 3:6], v[..., 6]
+    R = so3_exp(omega)
+    t = (_sim3_W(omega, sigma) @ rho[..., None])[..., 0]
+    return R, t, torch.exp(sigma)
+
+
+def sim3_log(R, t, s):
+    """Inverse of sim3_exp through a 3x3 solve of W rho = t (W's
+    eigenvalues (e^z - 1)/z, z = sigma +/- i*theta, stay away from 0 for
+    |theta| < pi)."""
+    omega = so3_log(R)
+    sigma = torch.log(s)
+    W = _sim3_W(omega, sigma)
+    # the _ex form checks nothing, so it never waits for the device; a
+    # singular W gives non-finite values, as jnp.linalg.solve does
+    rho = torch.linalg.solve_ex(W, t[..., None]).result[..., 0]
+    return torch.cat([rho, omega, sigma[..., None]], -1)
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0], s_inv
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    """Compose: apply b then a, x -> sa*Ra*(sb*Rb x + tb) + ta."""
+    return Ra @ Rb, sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta, sa * sb
+
+
+def sim3_apply(R, t, s, x):
+    return s[..., None] * (R @ x[..., None])[..., 0] + t
 
 
 # ---------------------------------------------------------------------------

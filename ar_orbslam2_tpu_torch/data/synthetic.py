@@ -225,6 +225,36 @@ def render_plane_sequence(cam, n_frames=40, seed=0, tex_size=2048,
     return np.stack(images), np.stack(Rs), np.stack(ts)
 
 
+def render_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
+                      plane_extent=6.0, distance=1.5, radius=1.2,
+                      turns=0.999, tilt=0.0):
+    """Render a camera translating once around a circle parallel to a
+    textured plane at z=`distance`: the end of the sequence revisits its
+    start (a loop), while views half a turn apart share no texture (2 *
+    radius exceeds the view's footprint). The camera keeps one viewing
+    direction, tilted by `tilt` radians about the image's vertical axis
+    from the plane's normal (0: facing it). Same return values as
+    render_plane_sequence."""
+    rng = np.random.default_rng(seed)
+    tex = _make_texture(tex_size, seed)
+    s = plane_extent / tex_size
+    A = np.array([[s, 0, -plane_extent / 2],
+                  [0, s, -plane_extent / 2],
+                  [0, 0, 1.0]])
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
+    images, Rs, ts = [], [], []
+    for i in range(n_frames):
+        a = 2 * np.pi * turns * i / max(n_frames - 1, 1)
+        eye = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
+        R, t = _look_at(eye, eye + np.array([distance * np.tan(tilt), 0.0,
+                                             distance]))
+        images.append(_render_plane_view(tex, A, K, cam, R, t, distance,
+                                         rng))
+        Rs.append(R)
+        ts.append(t)
+    return np.stack(images), np.stack(Rs), np.stack(ts)
+
+
 def _render_plane_view(tex, A, K, cam, R, t, distance, rng):
     """One view of the textured plane (exact homography warp)."""
     import cv2

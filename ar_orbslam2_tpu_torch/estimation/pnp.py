@@ -120,14 +120,14 @@ def _k_inverse(cam, device):
     return torch.linalg.inv(K).to(device)
 
 
-def draw_samples(valid, n_hyp, generator=None):
-    """(n_hyp, MIN_SAMPLE) indices drawn with replacement, uniformly over
-    the valid matches."""
+def draw_samples(valid, n_hyp, generator=None, size=MIN_SAMPLE):
+    """(n_hyp, size) indices drawn with replacement, uniformly over the
+    valid matches."""
     p = valid.to(torch.float32)
     p = p / torch.clamp(p.sum(), min=1.0)
     # all-invalid input: multinomial refuses a zero distribution
     p = torch.where(p.sum() > 0, p, torch.full_like(p, 1.0 / p.shape[0]))
-    return torch.multinomial(p.expand(n_hyp, -1), MIN_SAMPLE,
+    return torch.multinomial(p.expand(n_hyp, -1), size,
                              replacement=True, generator=generator)
 
 

@@ -15,8 +15,11 @@ Tracking's fused bookkeeping (``_fused_prev_pose``, the ``_inl_*`` levels,
 descriptors; the port re-expands them on its device.
 
 The place-recognition database goes across as well (the bow matrix, its
-row mask and the codebook's bits) with the relocalizer's settings, so both
-packages rank the same relocalization candidates for the same frame.
+row mask, the codebook's bits and whether and when it was trained) with the
+relocalizer's settings, so both packages rank the same candidates for the
+same frame; and the loop closer's state (the last loop keyframe, the
+consistency groups, the closed loops) with the store's loop edges, so both
+packages detect, verify and correct the same loops from one map.
 """
 from __future__ import annotations
 
@@ -67,6 +70,9 @@ def export_state(slam) -> dict:
             else tuple(_np(v) for v in t._fused_prev_pose)),
         fused=_export_fused(getattr(t, "fused", None)),
         kfdb=_export_kfdb(slam),
+        loop_edges={int(k): sorted(int(x) for x in v)
+                    for k, v in s.kf_loop_edges.items()},
+        loop_closer=_export_loop_closer(getattr(t, "loop_closer", None)),
         mapper_recent=dict(slam.mapper.recent),
         next_frame_id=int(slam._next_frame_id),
         last_frame=None)
@@ -81,18 +87,25 @@ def export_state(slam) -> dict:
 
 
 def _export_kfdb(slam):
-    """The keyframe database and the relocalizer's settings (either
-    package), or None when the system has no relocalizer."""
-    kfdb = getattr(slam, "kfdb", None)
-    reloc = getattr(slam.tracking, "relocalizer", None)
-    if kfdb is None or reloc is None:
+    """The keyframe database (the loop closer's when the system has one:
+    after a reset of the JAX package it is not the relocalizer's) and the
+    relocalizer's settings (either package), or None without a
+    database."""
+    t = slam.tracking
+    lc = getattr(t, "loop_closer", None)
+    kfdb = lc.kfdb if lc is not None else getattr(slam, "kfdb", None)
+    if kfdb is None:
         return None
+    reloc = getattr(t, "relocalizer", None)
     signs = kfdb.vocab.signs
     signs = signs.cpu().numpy() if hasattr(signs, "cpu") else np.asarray(signs)
     return dict(bow=np.array(kfdb.bow, copy=True),
                 has_bow=np.array(kfdb.has_bow, copy=True),
                 vocab_bits=(signs > 0).astype(np.uint8),
-                max_candidates=int(reloc.max_candidates))
+                trained=bool(kfdb.trained),
+                trained_at=float(kfdb._trained_at),
+                max_candidates=None if reloc is None
+                else int(reloc.max_candidates))
 
 
 def _load_kfdb(slam, db: dict):
@@ -102,7 +115,36 @@ def _load_kfdb(slam, db: dict):
     if not np.array_equal(db["vocab_bits"], kfdb.vocab.bits):
         kfdb.vocab = VocabTensor(bits=db["vocab_bits"], device=kfdb.device)
     kfdb.load(db["bow"], db["has_bow"])
-    slam.tracking.relocalizer.max_candidates = int(db["max_candidates"])
+    if "trained" in db:
+        kfdb.trained = bool(db["trained"])
+        kfdb._trained_at = db["trained_at"]
+    reloc = slam.tracking.relocalizer
+    if reloc is not None and db.get("max_candidates") is not None:
+        reloc.max_candidates = int(db["max_candidates"])
+
+
+def _export_loop_closer(lc):
+    """A loop closer's state (either package) as plain Python/numpy, or
+    None."""
+    if lc is None:
+        return None
+    return dict(
+        last_loop_kf=int(lc.last_loop_kf),
+        consistent_groups=[(sorted(int(k) for k in g), int(c))
+                           for g, c in lc.consistent_groups],
+        loops=[{k: np.array(v, copy=True) if isinstance(v, np.ndarray)
+                else v for k, v in loop.items()} for loop in lc.loops],
+        gba=dict(n_launched=lc.gba.n_launched, n_applied=lc.gba.n_applied,
+                 n_aborted=lc.gba.n_aborted))
+
+
+def _load_loop_closer(lc, state: dict):
+    lc.last_loop_kf = int(state["last_loop_kf"])
+    lc.consistent_groups = [(set(int(k) for k in g), int(c))
+                            for g, c in state["consistent_groups"]]
+    lc.loops = [dict(loop) for loop in state["loops"]]
+    for k, v in state["gba"].items():
+        setattr(lc.gba, k, int(v))
 
 
 def _export_fused(fe):
@@ -156,6 +198,9 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
         s.mp_free = [int(i) for i in state["mp_free"]]
     else:
         s.mp_free = [int(i) for i in np.nonzero(~s.mp_valid)[0][::-1]]
+    if state.get("loop_edges") is not None:
+        s.kf_loop_edges = {int(k): set(int(x) for x in v)
+                           for k, v in state["loop_edges"].items()}
     s.bump()
 
     tr = state["tracking"]
@@ -191,6 +236,9 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     t._fused_prev_pose = tr.get("fused_prev_pose")
     if state.get("kfdb") is not None and slam.kfdb is not None:
         _load_kfdb(slam, state["kfdb"])
+    lc = getattr(t, "loop_closer", None)
+    if state.get("loop_closer") is not None and lc is not None:
+        _load_loop_closer(lc, state["loop_closer"])
     fused = state.get("fused")
     if fused is not None and t.fused is not None:
         _load_fused(t.fused, fused)

@@ -10,9 +10,10 @@ was a hand kernel in the JAX package (plain XLA), so it is plain torch here:
 ``torch.matmul`` (float32, TF32 off: the ±1 dot products are exact),
 ``argmin`` (first index among equals, as ``jnp.argmin``) and ``index_add_``.
 
-The vocabulary is a fixed random binary codebook, the same bits as the JAX
-package's (``np.random.default_rng(42)``). Training it from the map's own
-descriptors (``maybe_retrain``) belongs to loop closing and is not ported.
+The startup vocabulary is a fixed random binary codebook, the same bits as
+the JAX package's (``np.random.default_rng(42)``); once the map holds
+enough keyframes, ``maybe_retrain`` trains a k-medians codebook from the
+map's own descriptors (loop/vocab_train.py) and re-encodes the database.
 
 Candidate selection mirrors KeyFrameDatabase (src/KeyFrameDatabase.cc):
 loop candidates must beat the min covisible score and survive
@@ -25,7 +26,10 @@ the JAX package replaces the array. The mapping worker adds on its own CUDA
 stream while the tracking thread scores, so both run under one lock: the
 writer records an event after its row copy and the reader's stream waits
 for it; the reader reads its scores back (a synchronisation) before it
-lets go of the lock, so no later write can overtake a read in flight.
+lets go of the lock, so no later write can overtake a read in flight. A
+retraining builds the new codebook and the re-encoded matrix aside and
+swaps them in under the same lock, so a reader sees the old database or
+the new one, never a half-rewritten one.
 """
 from __future__ import annotations
 
@@ -95,19 +99,81 @@ class KeyFrameDatabase:
         K = store.cfg.max_keyframes
         self.bow = np.zeros((K, self.vocab.n_words), np.float32)
         self.has_bow = np.zeros(K, bool)
-        self.trained = vocab is not None
+        self.trained = vocab is not None   # custom vocab: NEVER retrain
+        self._trained_at = float("inf") if vocab is not None else 0
         # device-resident bow matrix; add() updates one row in place
         self._bow_dev = torch.zeros((K, self.vocab.n_words),
                                     dtype=torch.float32, device=self.device)
         self._lock = threading.Lock()
         self._written = None            # event after the last row write
 
-    def maybe_retrain(self, *args, **kwargs):
-        raise NotImplementedError(
-            "KeyFrameDatabase.maybe_retrain (k-medians codebook training, "
-            "loop/vocab_train.py) is not ported to ar_orbslam2_tpu_torch "
-            "yet (ROADMAP.md, 'Modules still to port', item 3: loop "
-            "closing)")
+    def _mark_written(self):
+        """Record the event the readers' streams wait for (lock held)."""
+        if self.device.type == "cuda":
+            self._written = torch.cuda.Event()
+            self._written.record()
+
+    def reset(self):
+        """Empty the database in place, keeping its codebook: the JAX
+        package's LoopCloser.reset builds a new database around the old
+        vocabulary instead, which leaves the relocalizer on the old object
+        (ROADMAP.md §3). As there, the kept codebook is never retrained."""
+        with self._lock:
+            self.bow[...] = 0.0
+            self.has_bow[...] = False
+            self._bow_dev.zero_()
+            self.trained = True
+            self._trained_at = float("inf")
+            self._mark_written()
+
+    def maybe_retrain(self, min_kfs: int = 24, max_train: int = 30_000,
+                      n_iters: int = 4):
+        """K-medians codebook training from the map's own descriptors
+        (LOOP_RECALL.md: the trained codebook dominates under severe
+        viewpoint change), then every stored bow vector is re-encoded.
+        First fires at min_kfs keyframes, then again whenever the map has
+        QUADRUPLED since the last training."""
+        s = self.store
+        n_kf = s.n_keyframes()
+        if n_kf < min_kfs:
+            return False
+        if self.trained and n_kf < 4 * max(self._trained_at, 1):
+            return False
+        kfs = np.nonzero(self.has_bow & s.kf_valid)[0]
+        descs = s.kf_desc[kfs][s.kf_kp_valid[kfs]]
+        if len(descs) > max_train:
+            rng = np.random.default_rng(0)
+            descs = descs[rng.choice(len(descs), max_train, replace=False)]
+        from .vocab_train import train_codebook
+        bits = train_codebook(H.unpack_bits(descs).reshape(-1, H.DESC_BITS),
+                              n_words=self.vocab.n_words, n_iters=n_iters,
+                              device=self.device)
+        vocab = VocabTensor(bits=bits, device=self.device)
+        # re-encode aside, then swap everything in under the lock
+        bow = self.bow.copy()         # rows of culled keyframes stay
+        bow_dev = self._bow_dev.clone()
+        for kf in kfs:
+            row = self._encode(vocab, int(kf))
+            bow_dev[kf].copy_(row)
+        bow[kfs] = bow_dev[torch.as_tensor(kfs, device=self.device)
+                           ].cpu().numpy()
+        with self._lock:
+            self.vocab = vocab
+            self.bow = bow
+            self._bow_dev = bow_dev
+            self.trained = True
+            self._trained_at = n_kf
+            self._mark_written()
+        return True
+
+    def _encode(self, vocab, kf):
+        """A stored keyframe's bow row under `vocab`, on the device."""
+        s = self.store
+        packed = torch.as_tensor(np.ascontiguousarray(s.kf_desc[kf]),
+                                 device=self.device)
+        valid = torch.as_tensor(np.ascontiguousarray(s.kf_kp_valid[kf]),
+                                device=self.device)
+        return vocab.transform(H.signs_from_packed(packed), valid)[1]
 
     def compute_bow(self, desc_bits, valid):
         """Host descriptor bits -> (words, bow) as numpy."""
@@ -119,12 +185,7 @@ class KeyFrameDatabase:
     def add(self, kf: int, bow=None):
         """Parity: KeyFrameDatabase::add."""
         if bow is None:
-            s = self.store
-            packed = torch.as_tensor(np.ascontiguousarray(s.kf_desc[kf]),
-                                     device=self.device)
-            valid = torch.as_tensor(np.ascontiguousarray(s.kf_kp_valid[kf]),
-                                    device=self.device)
-            _, row = self.vocab.transform(H.signs_from_packed(packed), valid)
+            row = self._encode(self.vocab, kf)
             bow = row.cpu().numpy()
         else:
             bow = np.asarray(bow, np.float32)
@@ -133,9 +194,7 @@ class KeyFrameDatabase:
             self.bow[kf] = bow
             self.has_bow[kf] = True
             self._bow_dev[kf].copy_(row)
-            if self.device.type == "cuda":
-                self._written = torch.cuda.Event()
-                self._written.record()
+            self._mark_written()
 
     def load(self, bow, has_bow):
         """Bulk rewrite of the database (a map carried across)."""
@@ -143,9 +202,7 @@ class KeyFrameDatabase:
             self.bow[...] = bow
             self.has_bow[...] = has_bow
             self._bow_dev.copy_(torch.as_tensor(self.bow))
-            if self.device.type == "cuda":
-                self._written = torch.cuda.Event()
-                self._written.record()
+            self._mark_written()
 
     def _scores(self, bow_query, exclude=()):
         s = self.store

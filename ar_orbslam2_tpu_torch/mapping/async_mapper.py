@@ -16,9 +16,11 @@ the host store is protected by the coarse MapStore.lock (mMutexMapUpdate
 parity) held around write-backs and chunk-boundary reads. The fused bundle
 refreshes at the next chunk boundary after the mapper published.
 
-After a keyframe's mapping step the worker adds it to the relocalizer's
-place-recognition database (on its own stream; the database guards the
-shared bow matrix). Loop closing is not ported yet.
+After a keyframe's mapping step the worker hands it to the loop closer
+(place-recognition insert, loop detection, and on a loop the correction,
+the essential graph and the launch of a background global BA), or, without
+one, adds it to the relocalizer's database: on the worker's own stream (the
+database guards the shared bow matrix).
 """
 from __future__ import annotations
 
@@ -32,8 +34,10 @@ import torch
 class AsyncMapper:
     """Keyframe-queue worker wrapping LocalMapper."""
 
-    def __init__(self, mapper, device=None, relocalizer=None):
+    def __init__(self, mapper, device=None, loop_closer=None,
+                 relocalizer=None):
         self.mapper = mapper
+        self.loop_closer = loop_closer
         self.relocalizer = relocalizer
         self.device = torch.device(mapper.device if device is None
                                    else device)
@@ -98,7 +102,9 @@ class AsyncMapper:
                             kf = kf()    # deferred insert -> kf id (or None)
                         if kf is not None:
                             self.mapper.process_keyframe(kf)
-                            if self.relocalizer is not None and \
+                            if self.loop_closer is not None:
+                                self.loop_closer.insert_keyframe(kf)
+                            elif self.relocalizer is not None and \
                                     self.relocalizer.kfdb is not None:
                                 self.relocalizer.kfdb.add(kf)
                         self.n_processed += 1

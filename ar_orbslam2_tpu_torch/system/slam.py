@@ -21,6 +21,7 @@ from ..core.device import resolve_device
 from ..frontend.orb import OrbConfig, extract_orb
 from ..mapping.local_mapping import LocalMapper, LocalMapperConfig
 from ..mapstore.map import MapConfig, MapStore
+from ..ops import hamming as H
 from .frame import Frame
 from .tracking import Tracking, TrackingConfig
 
@@ -35,9 +36,9 @@ _ROADMAP = "ROADMAP.md, 'Modules still to port'"
 class SlamConfig:
     """The JAX package's SlamConfig, defaults included. Options this port
     does not implement yet raise NotImplementedError at construction — they
-    are never silently switched off. Runnable: monocular with
-    ``enable_loop_closing=False`` and any combination of
-    ``enable_relocalization``, ``use_fused_tracking`` and ``async_mapping``.
+    are never silently switched off. Runnable: monocular with any
+    combination of ``enable_loop_closing``, ``enable_relocalization``,
+    ``use_fused_tracking`` and ``async_mapping``.
     """
     sensor: str = MONOCULAR
     map: MapConfig = field(default_factory=MapConfig)
@@ -51,17 +52,11 @@ class SlamConfig:
     async_mapping: bool = False
 
     def __post_init__(self):
-        unported = [
-            (self.enable_loop_closing, "enable_loop_closing=True",
-             "item 3: loop closing"),
-            (self.sensor != MONOCULAR, f"sensor={self.sensor}",
-             "item 5: stereo/RGB-D"),
-        ]
-        for on, what, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to ar_orbslam2_tpu_torch yet "
-                    f"({_ROADMAP}, {item})")
+        if self.sensor != MONOCULAR:
+            raise NotImplementedError(
+                f"sensor={self.sensor} is not ported to "
+                f"ar_orbslam2_tpu_torch yet ({_ROADMAP}, item 5: "
+                "stereo/RGB-D)")
 
 
 def per_frame_config(**kw) -> SlamConfig:
@@ -96,11 +91,22 @@ class SlamSystem:
                                   device=self.device)
         self.tracking = Tracking(self.store, self.mapper, cam, cfg.tracking,
                                  device=self.device, seed=seed)
+        # one place-recognition database, shared by the loop closer and
+        # the relocalizer (through resets too)
         self.kfdb = None
-        if cfg.enable_relocalization:
-            from ..estimation.relocalization import Relocalizer
+        if cfg.enable_loop_closing or cfg.enable_relocalization:
             from ..loop.place_recognition import KeyFrameDatabase
             self.kfdb = KeyFrameDatabase(self.store, device=self.device)
+        if cfg.enable_loop_closing:
+            from ..loop.loop_closing import LoopCloser, LoopCloserConfig
+            self.tracking.loop_closer = LoopCloser(
+                self.store, self.mapper, cam,
+                cfg=LoopCloserConfig(
+                    fix_scale=cfg.sensor != MONOCULAR,
+                    scale_factor=cfg.tracking.scale_factor),
+                kfdb=self.kfdb, device=self.device)
+        if cfg.enable_relocalization:
+            from ..estimation.relocalization import Relocalizer
             self.tracking.relocalizer = Relocalizer(
                 self.store, self.mapper, cam, cfg.tracking, kfdb=self.kfdb,
                 device=self.device)
@@ -112,7 +118,8 @@ class SlamSystem:
         if cfg.async_mapping:
             from ..mapping.async_mapper import AsyncMapper
             self.tracking.async_mapper = AsyncMapper(
-                self.mapper, relocalizer=self.tracking.relocalizer)
+                self.mapper, loop_closer=self.tracking.loop_closer,
+                relocalizer=self.tracking.relocalizer)
         self._next_frame_id = 0
         self.last_frame = None
         self.captures_at_warmup = None      # set by precompile()
@@ -385,10 +392,14 @@ class SlamSystem:
         (vocabulary matmul, scoring, brute-force search, the batched
         eigh/svd of the PnP and their cuSOLVER handles, both pose
         optimizations, the top-up search) has run eagerly before the steady
-        state; none of it is captured. Legs of the JAX package's precompile
-        that wait for unported modules (loop closer, vocabulary assignment,
-        pose graph, global BA) are left out; ROADMAP.md lists them under
-        those modules."""
+        state; none of it is captured. With a loop closer the twin also
+        runs the loop stages on dummy inputs of the real shapes (Sim3
+        RANSAC, both searches, the Sim3 Gauss-Newton), the vocabulary
+        assignment, a background global BA over its map (dispatch thread,
+        side stream, write-back) and the essential graph at the first edge
+        bucket; and the live system's mapping worker runs the loop stages
+        once on its own thread and stream, whose cuBLAS and cuSOLVER
+        handles are its own."""
         from ..data import synthetic
         from .tracking import _bound_pose_opt
 
@@ -429,13 +440,49 @@ class SlamSystem:
             t.state = "LOST"     # the relocalization path, eagerly
             t.velocity = None
             twin.track_monocular(imgs[-1], timestamp=(n_frames + 4) / 30.0)
+        if twin.tracking.loop_closer is not None:
+            self._warm_loop_legs(twin)
         twin.shutdown()
         del twin, fe
+        am = self.tracking.async_mapper
+        if self.tracking.loop_closer is not None and am is not None:
+            am.submit_task(self._warm_worker)
+            am.join()
         if self.tracking.fused is not None:
             self.tracking.fused.warm()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.captures_at_warmup = self.n_captures
+
+    @staticmethod
+    def _warm_loop_legs(twin):
+        """The loop closer's legs of precompile, run on a twin system."""
+        from ..estimation.pose_graph import optimize_essential_graph
+        from ..loop.vocab_train import assign_words
+        lc = twin.tracking.loop_closer
+        lc.precompile()
+        assign_words(np.zeros((1, H.DESC_BITS), np.int8), lc.kfdb.vocab.signs)
+        lc.gba.launch()
+        lc.gba.poll(block=True)
+        dev = twin.device
+        K = twin.store.cfg.max_keyframes
+        E = 64                      # first edge-axis bucket
+        eye = torch.eye(3, device=dev)
+        ar_k = torch.arange(K, device=dev)
+        optimize_essential_graph(
+            eye.expand(K, 3, 3), torch.zeros((K, 3), device=dev),
+            torch.ones(K, device=dev), ar_k < 2, ar_k == 0,
+            torch.zeros(E, dtype=torch.int32, device=dev),
+            torch.ones(E, dtype=torch.int32, device=dev),
+            eye.expand(E, 3, 3), torch.zeros((E, 3), device=dev),
+            torch.ones(E, device=dev), torch.arange(E, device=dev) < 1,
+            n_iters=20, fix_scale=lc.cfg.fix_scale)
+
+    def _warm_worker(self):
+        """Run on the mapping worker by precompile: the loop stages on its
+        thread and stream. Returns None (no keyframe to map)."""
+        self.tracking.loop_closer.precompile()
+        return None
 
     @property
     def n_captures(self) -> int:
@@ -457,11 +504,14 @@ class SlamSystem:
 
     def shutdown(self):
         """Parity: System::Shutdown — joins the mapping worker (raising
-        what it died of, if it did) and waits for the device's queued
-        work."""
+        what it died of, if it did), waits for (and applies) a pending
+        background global BA, and waits for the device's queued work."""
         am = self.tracking.async_mapper
         if am is not None:
             am.join()
+        lc = self.tracking.loop_closer
+        if lc is not None:
+            lc.gba.poll(block=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -21,13 +21,14 @@ A frame that cannot be tracked, and every frame while LOST, goes to the
 relocalizer (estimation/relocalization.py) when the system has one; the
 fused paths hand such a frame to the per-frame path, and once it has
 relocalized the callers rebuild the fused state from it through the same
-static buffers (no new graph capture). Keyframes are registered in the
-relocalizer's place-recognition database as they are created, on the
-thread that finishes their mapping.
+static buffers (no new graph capture). Each keyframe goes to the loop
+closer (loop/loop_closing.py), or without one into the relocalizer's
+place-recognition database, on the thread that finishes its mapping; the
+two share one database.
 
-Not ported yet: loop closing, localization mode and stereo/RGB-D (see
-ROADMAP.md). Without a relocalizer a failed frame goes LOST, as it does in
-the JAX package with relocalization disabled.
+Not ported yet: localization mode and stereo/RGB-D (see ROADMAP.md).
+Without a relocalizer a failed frame goes LOST, as it does in the JAX
+package with relocalization disabled.
 """
 from __future__ import annotations
 
@@ -173,7 +174,7 @@ class Tracking:
 
     def __init__(self, store, local_mapper, cam,
                  cfg: TrackingConfig = TrackingConfig(), device=None,
-                 seed=0, relocalizer=None):
+                 seed=0, relocalizer=None, loop_closer=None):
         self.store = store
         self.mapper = local_mapper
         self.cam = cam
@@ -181,6 +182,7 @@ class Tracking:
         self.device = resolve_device(device)
         self.seed = seed                    # RANSAC draw of each init attempt
         self.relocalizer = relocalizer      # set by SlamSystem
+        self.loop_closer = loop_closer
         self.fused = None                   # FusedFrontend (image mono path)
         self.async_mapper = None            # AsyncMapper (mapping thread)
         self.only_tracking = False          # localization mode: not ported
@@ -626,13 +628,13 @@ class Tracking:
                     R_cr @ self.store.kf_t[anchor] + t_cr)
 
     def _finish_kf_async(self, kf):
-        """Worker-side tail of a HARD keyframe event: the BA stage
-        deferred out of the barrier. Returns None so the worker does not
-        run process_keyframe again."""
+        """Worker-side tail of a HARD keyframe event: the BA + loop
+        stages deferred out of the barrier. Returns None so the worker does
+        not run process_keyframe again."""
         if self.store.kf_valid[kf]:
             self.mapper.local_bundle_adjustment(kf)
             self.mapper.cull_keyframes(kf)
-        self._register_kf_in_db(kf)
+        self._close_loops(kf)
         return None
 
     def _deferred_kf_insert(self, snaps, j, timestamp, frame_id,
@@ -1046,13 +1048,23 @@ class Tracking:
         self._dbg.update({k: v for k, v in self.mapper.last_stats.items()
                           if k.startswith("t_")})
         t0 = time.perf_counter()
-        self._register_kf_in_db(kf)
+        self._close_loops(kf)
         self._dbg["t_loop_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
 
+    def _close_loops(self, kf: int):
+        """A finished keyframe goes to the loop closer, or without one into
+        the relocalizer's database."""
+        if self.loop_closer is not None:
+            self.loop_closer.insert_keyframe(kf)
+        else:
+            self._register_kf_in_db(kf)
+
     def _register_kf_in_db(self, kf: int):
-        """Add a keyframe to the place-recognition database (loop detection
-        is not ported: the relocalizer's database is the only one)."""
-        if self.relocalizer is not None and \
+        """Add a keyframe to the place-recognition database without running
+        loop detection (the map's first keyframes)."""
+        if self.loop_closer is not None:
+            self.loop_closer.kfdb.add(kf)
+        elif self.relocalizer is not None and \
                 self.relocalizer.kfdb is not None:
             self.relocalizer.kfdb.add(kf)
 
@@ -1092,3 +1104,5 @@ class Tracking:
         self.init_frame = None
         self.last_kf_frame_id = -1
         self.n_resets += 1
+        if self.loop_closer is not None:
+            self.loop_closer.reset()

@@ -26,7 +26,10 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 for new in ("loop.place_recognition", "estimation.pnp",
-            "estimation.relocalization"):
+            "estimation.relocalization", "loop.loop_closing",
+            "loop.vocab_train", "estimation.sim3_solver",
+            "estimation.pose_graph", "mapping.global_ba",
+            "mapping.background_gba"):
     assert "ar_orbslam2_tpu_torch." + new in names, new
 import chip_smoke
 bad = [m for m in sys.modules

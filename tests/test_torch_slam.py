@@ -149,16 +149,14 @@ def test_trajectory_exports(port_run, tmp_path):
 
 
 def test_unported_options_raise():
-    for opt in ("enable_loop_closing",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlamConfig(**dict(SLICE, **{opt: True}))
     for opt in ("use_fused_tracking", "async_mapping",
-                "enable_relocalization"):                     # ported
+                "enable_relocalization", "enable_loop_closing"):  # ported
         assert getattr(SlamConfig(**dict(SLICE, **{opt: True})), opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamConfig(sensor="STEREO", **SLICE)
-    with pytest.raises(NotImplementedError):
-        SlamConfig()          # the JAX defaults turn on unported paths
+    # the JAX defaults are all ported for the monocular sensor
+    assert SlamConfig().enable_loop_closing
+    assert SlamConfig(async_mapping=True).async_mapping
 
 
 def test_entry_points_default_to_the_card():
