@@ -235,6 +235,24 @@ def render_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
     direction, tilted by `tilt` radians about the image's vertical axis
     from the plane's normal (0: facing it). Same return values as
     render_plane_sequence."""
+    out = _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
+                             distance, radius, turns, tilt, baseline=None)
+    return out[0], out[2], out[3]
+
+
+def render_stereo_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
+                             plane_extent=6.0, distance=1.5, radius=1.2,
+                             turns=0.999, tilt=0.0):
+    """render_plane_loop's circle as rectified stereo pairs, the right
+    camera displaced by cam.bf / cam.fx along the camera x axis (as in
+    render_stereo_plane_sequence). Returns (left, right, R_cw, t_cw)."""
+    baseline = cam.bf / cam.fx if cam.bf > 0 else 0.1
+    return _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
+                              distance, radius, turns, tilt, baseline)
+
+
+def _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
+                       distance, radius, turns, tilt, baseline):
     rng = np.random.default_rng(seed)
     tex = _make_texture(tex_size, seed)
     s = plane_extent / tex_size
@@ -242,17 +260,22 @@ def render_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
                   [0, s, -plane_extent / 2],
                   [0, 0, 1.0]])
     K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
-    images, Rs, ts = [], [], []
+    lefts, rights, Rs, ts = [], [], [], []
     for i in range(n_frames):
         a = 2 * np.pi * turns * i / max(n_frames - 1, 1)
         eye = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
         R, t = _look_at(eye, eye + np.array([distance * np.tan(tilt), 0.0,
                                              distance]))
-        images.append(_render_plane_view(tex, A, K, cam, R, t, distance,
-                                         rng))
+        lefts.append(_render_plane_view(tex, A, K, cam, R, t, distance,
+                                        rng))
+        if baseline is not None:
+            t_r = t - np.array([baseline, 0.0, 0.0], t.dtype)
+            rights.append(_render_plane_view(tex, A, K, cam, R, t_r,
+                                             distance, rng))
         Rs.append(R)
         ts.append(t)
-    return np.stack(images), np.stack(Rs), np.stack(ts)
+    return (np.stack(lefts), np.stack(rights) if rights else None,
+            np.stack(Rs), np.stack(ts))
 
 
 def _render_plane_view(tex, A, K, cam, R, t, distance, rng):

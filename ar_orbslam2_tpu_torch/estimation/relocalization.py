@@ -13,8 +13,8 @@ The structure is the reference's: the host walks the candidates and reads
 one small result back per stage to decide whether to go on (a LOST frame is
 rare; nothing here is captured into a graph). Each read is ONE transfer
 (`_read`), counted in ``last_stats["syncs"]`` with the stage times of the
-attempt. When the database returns no candidate the newest keyframes are
-tried instead, as the reference does.
+attempt. When the database returns no candidate the newest keyframes (by
+creation number, ``kf_seq``) are tried instead, as the reference does.
 """
 from __future__ import annotations
 
@@ -81,8 +81,10 @@ class Relocalizer:
             if cands:
                 return cands[:self.max_candidates]
         # fallback: most recent keyframes
-        ids = self.store.keyframe_ids()
-        return [int(k) for k in ids[::-1][:self.max_candidates]]
+        s = self.store
+        ids = s.keyframe_ids()
+        ids = ids[np.argsort(-s.kf_seq[ids], kind="stable")]
+        return [int(k) for k in ids[:self.max_candidates]]
 
     def relocalize(self, frame):
         """Try to estimate the frame pose from scratch. Returns inlier

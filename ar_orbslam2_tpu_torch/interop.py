@@ -20,6 +20,13 @@ relocalizer's settings, so both packages rank the same candidates for the
 same frame; and the loop closer's state (the last loop keyframe, the
 consistency groups, the closed loops) with the store's loop edges, so both
 packages detect, verify and correct the same loops from one map.
+
+Localization mode (``only_tracking``, the ``vo`` regime) and the last
+frame's stereo right-u and depth go across, so depth-sensor runs continue
+from a carried state. So does the port's keyframe-slot state (creation
+numbers, the free slots, the erasure records); a state from the JAX
+package, which never reuses a slot, gets the state it implies (creation
+number = id).
 """
 from __future__ import annotations
 
@@ -27,13 +34,13 @@ import copy
 
 import numpy as np
 
-from .mapstore.checkpoint import _ARRAYS
+from .mapstore.checkpoint import _ARRAYS, restore_slots
 from .ops import hamming as H
 from .system.frame import Frame
 from .system.slam import SlamSystem
 
 _FRAME_FIELDS = ("R", "t", "mp", "uv", "desc_bits", "octave", "valid",
-                 "angle")
+                 "angle", "uvr", "depth")
 _FUSED_SCALARS = ("version", "anchor_kf", "_bundle_epoch")
 _FUSED_ARRAYS = ("bundle_ids", "anchor_R", "anchor_t", "_acc_base_vis",
                  "_acc_base_fnd")
@@ -53,8 +60,14 @@ def export_state(slam) -> dict:
         mp_free=list(s.mp_free),
         next_kf=int(s.next_kf),
         store_version=int(s.version),
+        slots=None if not hasattr(s, "kf_seq") else dict(
+            kf_seq=np.array(s.kf_seq, copy=True),
+            n_created=int(s.n_kf_created), kf_free=list(s.kf_free),
+            erased_parent=dict(s.kf_erased_parent), tombs=dict(s.kf_tombs)),
         tracking=dict(
             state=t.state, ref_kf=int(t.ref_kf),
+            only_tracking=bool(getattr(t, "only_tracking", False)),
+            vo=bool(getattr(t, "vo", False)),
             last_kf_frame_id=int(t.last_kf_frame_id),
             velocity=None if t.velocity is None
             else tuple(_np(v) for v in t.velocity),
@@ -64,7 +77,8 @@ def export_state(slam) -> dict:
             low_streak=int(getattr(t, "_low_streak", 0)),
             last_rel=None if getattr(t, "last_rel", None) is None
             else (_np(t.last_rel[0]), _np(t.last_rel[1]),
-                  int(t.last_rel[2])),
+                  int(t.last_rel[2]),
+                  int(t.last_rel[3]) if len(t.last_rel) > 3 else None),
             fused_prev_pose=None
             if getattr(t, "_fused_prev_pose", None) is None
             else tuple(_np(v) for v in t._fused_prev_pose)),
@@ -80,6 +94,7 @@ def export_state(slam) -> dict:
         frame = {k: _np(getattr(lf, k)) for k in _FRAME_FIELDS}
         frame.update(frame_id=int(lf.frame_id), timestamp=float(lf.timestamp),
                      ref_kf=int(getattr(lf, "ref_kf", -1)),
+                     ref_seq=getattr(lf, "ref_seq", None),
                      R_cr=_np(getattr(lf, "R_cr", None)),
                      t_cr=_np(getattr(lf, "t_cr", None)))
         state["last_frame"] = frame
@@ -192,6 +207,14 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     for name in _ARRAYS:
         getattr(s, name)[...] = state["map"][name]
     s.next_kf = int(state["next_kf"])
+    slots = state.get("slots")
+    if slots is not None:
+        restore_slots(s, slots["kf_seq"], slots["n_created"],
+                      slots["kf_free"])
+        s.kf_erased_parent = dict(slots["erased_parent"])
+        s.kf_tombs = dict(slots["tombs"])
+    else:
+        restore_slots(s)
     if state.get("mp_replaced") is not None:
         s.mp_replaced[...] = state["mp_replaced"]
     if state.get("mp_free") is not None:
@@ -207,6 +230,8 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     t.state = tr["state"]
     t.ref_kf = int(tr["ref_kf"])
     t.last_kf_frame_id = int(tr["last_kf_frame_id"])
+    t.only_tracking = bool(tr.get("only_tracking", False))
+    t.vo = bool(tr.get("vo", False))
     vel = tr.get("velocity")
     t.velocity = None if vel is None else tuple(
         np.asarray(v, np.float32) for v in vel)
@@ -217,11 +242,15 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     if lf is not None:
         frame = Frame(uv=lf["uv"], desc_bits=lf["desc_bits"],
                       octave=lf["octave"], valid=lf["valid"],
-                      angle=lf["angle"], timestamp=lf["timestamp"],
+                      angle=lf["angle"], uvr=lf.get("uvr"),
+                      depth=lf.get("depth"), timestamp=lf["timestamp"],
                       frame_id=lf["frame_id"], R=lf["R"], t=lf["t"],
                       mp=np.asarray(lf["mp"], np.int64).copy(),
                       device=slam.device)
         frame.ref_kf = int(lf.get("ref_kf", -1))
+        frame.ref_seq = lf.get("ref_seq")
+        if frame.ref_seq is None and frame.ref_kf >= 0:
+            frame.ref_seq = int(s.kf_seq[frame.ref_kf])
         frame.R_cr = lf.get("R_cr")
         frame.t_cr = lf.get("t_cr")
         t.last_frame = frame
@@ -232,7 +261,14 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     t._inl_peak = float(tr.get("inl_peak", 0.0))
     t._inl_decay = float(tr.get("inl_decay", 0.0))
     t._low_streak = int(tr.get("low_streak", 0))
-    t.last_rel = tr.get("last_rel")
+    rel = tr.get("last_rel")
+    if rel is not None:
+        # the JAX package keeps (R_cr, t_cr, ref): creation number = id
+        R_cr, t_cr, ref = rel[:3]
+        seq = rel[3] if len(rel) > 3 and rel[3] is not None \
+            else int(s.kf_seq[ref])
+        rel = (R_cr, t_cr, ref, seq)
+    t.last_rel = rel
     t._fused_prev_pose = tr.get("fused_prev_pose")
     if state.get("kfdb") is not None and slam.kfdb is not None:
         _load_kfdb(slam, state["kfdb"])
@@ -242,6 +278,8 @@ def from_state(cam, cfg, state: dict, device=None, seed=0) -> SlamSystem:
     fused = state.get("fused")
     if fused is not None and t.fused is not None:
         _load_fused(t.fused, fused)
+        if t.fused.anchor_kf >= 0:
+            t.fused.anchor_seq = int(s.kf_seq[t.fused.anchor_kf])
         # s.bump() above moved the store's version: a bundle that was
         # current for the exported map is current for the carried one
         current = fused["version"] == state.get("store_version")

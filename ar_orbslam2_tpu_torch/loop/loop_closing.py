@@ -103,6 +103,10 @@ class LoopCloser:
         self.device = resolve_device(mapper.device if device is None
                                      else device)
         self.kfdb = kfdb or KeyFrameDatabase(store, device=self.device)
+        # the last loop keyframe and the consistency groups are kept as
+        # creation numbers (kf_seq: the ids until a keyframe slot is
+        # reused), so a reused slot neither shortens the gap nor joins a
+        # group it never belonged to
         self.last_loop_kf = -self.cfg.min_kf_gap
         self.consistent_groups: list[tuple[set, int]] = []
         self.loops: list[dict] = []
@@ -177,7 +181,8 @@ class LoopCloser:
             self.kfdb.maybe_retrain(min_kfs=self.cfg.vocab_train_at)
         # harvest a finished background GBA (no-op while still running)
         self.gba.poll()
-        if kf - self.last_loop_kf < self.cfg.min_kf_gap:
+        seq = int(self.store.kf_seq[kf])
+        if seq - self.last_loop_kf < self.cfg.min_kf_gap:
             return False
         t0 = time.perf_counter()
         cands = self._detect_loop(kf)
@@ -189,7 +194,7 @@ class LoopCloser:
             if sim3 is None:
                 continue
             self._correct_loop(kf, cand, sim3, stats)
-            self.last_loop_kf = kf
+            self.last_loop_kf = seq
             self.consistent_groups = []
             return True
         return False
@@ -206,8 +211,8 @@ class LoopCloser:
         enough = []
         new_groups: list[tuple[set, int]] = []
         for cand in raw:
-            group = {cand} | {int(g) for g in
-                              s.covisible_keyframes(cand, n_best=10)}
+            group = {int(s.kf_seq[g]) for g in
+                     [cand, *s.covisible_keyframes(cand, n_best=10)]}
             best_consistency = 0
             for prev_group, count in self.consistent_groups:
                 if group & prev_group:

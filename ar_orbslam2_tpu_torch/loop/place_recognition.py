@@ -106,6 +106,9 @@ class KeyFrameDatabase:
                                     dtype=torch.float32, device=self.device)
         self._lock = threading.Lock()
         self._written = None            # event after the last row write
+        # a keyframe slot taken again must not score with the bow vector
+        # of the keyframe it held before (mapstore/map.py)
+        store.slot_listeners.append(self.forget)
 
     def _mark_written(self):
         """Record the event the readers' streams wait for (lock held)."""
@@ -181,6 +184,15 @@ class KeyFrameDatabase:
         valid = torch.as_tensor(np.asarray(valid), device=self.device)
         words, bow = self.vocab.transform(signs, valid)
         return words.cpu().numpy(), bow.cpu().numpy()
+
+    def forget(self, kf: int):
+        """Drop slot kf's row (its keyframe was erased and the slot is
+        being reused); the new keyframe's row comes with its add()."""
+        with self._lock:
+            self.bow[kf] = 0.0
+            self.has_bow[kf] = False
+            self._bow_dev[kf].zero_()
+            self._mark_written()
 
     def add(self, kf: int, bow=None):
         """Parity: KeyFrameDatabase::add."""

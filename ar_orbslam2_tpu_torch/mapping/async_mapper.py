@@ -6,15 +6,17 @@ tracking NEVER waits for mapping — it keeps tracking against the map as of
 the last completed mapping step, and new keyframes are simply not accepted
 while the mapper is saturated (SetAcceptKeyFrames(false)).
 
-One worker thread drains a queue of freshly inserted keyframe ids (or
-deferred-insert callables) and runs the mapping stage (triangulate -> fuse
--> local BA -> cull) for each. On a CUDA device the worker's device work
-runs on a stream of its own, so it overlaps the tracking thread's graph
-replays instead of queueing behind them. The device-resident tracking state
-(system/fused.py) keeps using its bundle snapshot while the mapper works;
-the host store is protected by the coarse MapStore.lock (mMutexMapUpdate
-parity) held around write-backs and chunk-boundary reads. The fused bundle
-refreshes at the next chunk boundary after the mapper published.
+One worker thread drains a queue of freshly inserted keyframe ids (with
+their creation numbers: a keyframe culled and its slot reused before the
+worker reaches it is skipped) or deferred-insert callables and runs the
+mapping stage (triangulate -> fuse -> local BA -> cull) for each. On a CUDA
+device the worker's device work runs on a stream of its own, so it
+overlaps the tracking thread's graph replays instead of queueing behind
+them. The device-resident tracking state (system/fused.py) keeps using its
+bundle snapshot while the mapper works; the host store is protected by the
+coarse MapStore.lock (mMutexMapUpdate parity) held around write-backs and
+chunk-boundary reads. The fused bundle refreshes at the next chunk boundary
+after the mapper published.
 
 After a keyframe's mapping step the worker hands it to the loop closer
 (place-recognition insert, loop detection, and on a loop the correction,
@@ -70,8 +72,11 @@ class AsyncMapper:
             self._pending += 1
         self._q.put(item)
 
-    def submit(self, kf: int):
-        self._put(int(kf))
+    def submit(self, kf: int, seq: int):
+        """Queue keyframe kf, created as `seq` (store.kf_seq), for
+        mapping. The worker skips it if the slot holds another keyframe
+        by the time it comes up (culled and its slot reused meanwhile)."""
+        self._put((int(kf), int(seq)))
 
     def submit_task(self, fn):
         """Run an arbitrary callable on the mapping worker. The pipelined
@@ -100,6 +105,13 @@ class AsyncMapper:
                     if self.error is None:
                         if callable(kf):
                             kf = kf()    # deferred insert -> kf id (or None)
+                        else:
+                            # skipped only when the slot was reused: a
+                            # culled keyframe is still mapped, as in the
+                            # JAX package
+                            kf, seq = kf
+                            if self.mapper.store.kf_seq[kf] != seq:
+                                kf = None
                         if kf is not None:
                             self.mapper.process_keyframe(kf)
                             if self.loop_closer is not None:

@@ -32,12 +32,16 @@ from .global_ba import dispatch_global_ba, gather_global, read_result
 
 
 class _Job:
-    __slots__ = ("g", "kf_in", "mp_in", "res", "start", "event", "thread",
-                 "error", "enqueue_ms")
+    __slots__ = ("g", "kf_seq", "kf_in", "mp_in", "res", "start", "event",
+                 "thread", "error", "enqueue_ms")
 
-    def __init__(self, g):
+    def __init__(self, g, kf_seq):
         self.g = g
-        self.kf_in = set(int(k) for k in g["kf_arr"][:g["n_kf"]])
+        # keyframes by (slot, creation number): a slot reused while the BA
+        # ran holds a keyframe the BA never saw
+        self.kf_seq = kf_seq
+        self.kf_in = set(zip((int(k) for k in g["kf_arr"][:g["n_kf"]]),
+                             (int(q) for q in kf_seq)))
         self.mp_in = set(int(m) for m in g["mp_arr"][:g["n_mp"]])
         self.res = None
         self.start = None           # CUDA events around the BA
@@ -91,7 +95,8 @@ class BackgroundGBA:
         """Snapshot the map and dispatch full BA asynchronously."""
         if self._job is not None:
             self.abort()
-        job = _Job(gather_global(self.store))
+        g = gather_global(self.store)
+        job = _Job(g, self.store.kf_seq[g["kf_arr"][:g["n_kf"]]].copy())
         if self.device.type == "cuda":
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
@@ -166,12 +171,12 @@ class BackgroundGBA:
         # current old-map-frame pose here, which is what the relative-pose
         # propagation below is anchored to
         old_R, old_t = s.kf_R.copy(), s.kf_t.copy()
-        alive = s.kf_valid[upd]
+        alive = s.kf_valid[upd] & (s.kf_seq[upd] == job.kf_seq[ok_R])
         s.kf_R[upd[alive]] = cam_R[:nk][ok_R][alive]
         s.kf_t[upd[alive]] = cam_t[:nk][ok_R][alive]
 
         # ---- spanning-tree propagation for keyframes created since ----
-        in_ba = job.kf_in
+        in_ba = {k for k, q in job.kf_in if s.kf_seq[k] == q}
         for k in [int(k) for k in s.keyframe_ids() if int(k) not in in_ba]:
             anc = int(s.kf_parent[k])
             hops = 0

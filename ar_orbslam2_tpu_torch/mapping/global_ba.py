@@ -111,20 +111,23 @@ def read_result(res):
 
 def global_bundle_adjustment(store, cam, n_iters=20, distributed=None,
                              banded=None, device=None):
-    """Run full BA on `device` and write the results back into the store.
-    Returns the final cost."""
+    """Run full BA on `device` and write the results back into the store
+    (under its lock; a keyframe slot reused since the gather keeps its new
+    keyframe's pose). Returns the final cost."""
     if distributed or banded:
         raise NotImplementedError(
             f"{'distributed' if distributed else 'banded'} global BA "
             f"{_UNPORTED}")
     s = store
     g = gather_global(store)
+    seq = s.kf_seq[g["kf_arr"][:g["n_kf"]]].copy()
     cam_R, cam_t, pts, cost = read_result(
         dispatch_global_ba(g, cam, n_iters=n_iters, device=device))
     nk, nm = g["n_kf"], g["n_mp"]
     kf_ids = g["kf_arr"][:nk]
-    ok_R = np.isfinite(cam_R[:nk]).all((-1, -2))
     with s.lock:
+        ok_R = (np.isfinite(cam_R[:nk]).all((-1, -2))
+                & (s.kf_seq[kf_ids] == seq))
         s.kf_R[kf_ids[ok_R]] = cam_R[:nk][ok_R]
         s.kf_t[kf_ids[ok_R]] = cam_t[:nk][ok_R]
         mp_ids = g["mp_arr"][:nm]

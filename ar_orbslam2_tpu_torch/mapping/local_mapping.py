@@ -107,7 +107,8 @@ class LocalMapper:
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
-        # recently created landmarks: mp_id -> kf_id at creation
+        # recently created landmarks: mp_id -> creation number (kf_seq) of
+        # the keyframe that made them (its id until a slot is reused)
         self.recent: dict[int, int] = {}
         self.last_stats: dict = {}   # per-KF diagnostics (culled/created)
 
@@ -155,12 +156,13 @@ class LocalMapper:
         keep a >=0.25 found ratio and gain >=3 observers within 2 KFs."""
         s = self.store
         dead, graduated = [], []
-        for mp, born_kf in self.recent.items():
+        now = int(s.kf_seq[kf])
+        for mp, born in self.recent.items():
             if not s.mp_valid[mp]:
                 dead.append(mp)
                 continue
             found_ratio = s.mp_found[mp] / max(int(s.mp_visible[mp]), 1)
-            age = kf - born_kf
+            age = now - born
             if found_ratio < self.cfg.cull_found_ratio:
                 s.erase_map_point(mp)
                 dead.append(mp)
@@ -232,7 +234,7 @@ class LocalMapper:
                                        s.kf_desc[kf, feats1], first_kf=kf)
                 s.add_observations(ids, kf, feats1)
                 s.add_observations(ids, nb, feats2)
-                self.recent.update((int(m), kf) for m in ids)
+                self.recent.update((int(m), int(s.kf_seq[kf])) for m in ids)
                 all_ids.append(ids)
                 n_created += len(ids)
             if n_created:
@@ -449,13 +451,14 @@ class LocalMapper:
         """Parity: LocalMapping::KeyFrameCulling — erase local KFs whose
         landmarks are >=90% seen by >=3 other KFs at same/finer scale."""
         s, cfg = self.store, self.cfg
-        newest = s.next_kf - 1
+        newest = s.n_kf_created - 1
         for cand in [int(k) for k in s.covisible_keyframes(kf)]:
             if cand == 0 or cand == kf:
                 continue
             # never cull the freshest keyframes: their triangulated points
-            # carry the only forward coverage
-            if cand >= newest - 2:
+            # carry the only forward coverage (by creation number: the JAX
+            # package's id test, which a reused slot would defeat)
+            if s.kf_seq[cand] >= newest - 2:
                 continue
             feats = np.nonzero(s.kf_mp[cand] >= 0)[0]
             if len(feats) == 0:

@@ -12,6 +12,21 @@ dynamic — while every hot numeric consumer (matching, BA, triangulation)
 receives fixed-shape padded device bundles via the gather_* methods. The
 reference's mutex discipline disappears: stages exchange explicit arrays,
 single-writer (the pipeline) mutates the store.
+
+Keyframe slots are reused (a repair of the JAX package, which raises once
+``max_keyframes`` keyframes have ever been created, culled ones included):
+``erase_keyframe`` puts the slot on ``kf_free``, and once ``next_kf`` has
+reached capacity ``add_keyframe`` takes the oldest freed slot and resets
+every per-keyframe array. Until then ids are exactly the JAX package's.
+``kf_seq`` numbers keyframes in creation order: from the first reuse on an
+id is no longer a keyframe's age, so every "newer than" or "gap" reads
+``kf_seq``, and code that keeps an id across time keeps its ``kf_seq``
+beside it (``slot_is``). When a slot is reused, ``kf_tombs`` keeps for
+the keyframe it held (by creation number) its spanning-tree parent and its
+last pose relative to that parent, so a trajectory anchored to it is
+exported through the parent (``keyframe_pose``), as ORB-SLAM2's
+SaveTrajectoryTUM walks over bad keyframes; the relative pose is taken at
+the reuse, so the export does not jump there.
 """
 from __future__ import annotations
 
@@ -35,6 +50,11 @@ class MapConfig:
 
 # byte -> popcount lookup (vectorized packed-Hamming on the host)
 _POPCNT = np.array([bin(i).count("1") for i in range(256)], np.int32)
+
+
+def _compose(Ra, ta, Rb, tb):
+    """(Ra, ta) ∘ (Rb, tb) in float32: first b, then a."""
+    return (Ra @ Rb).astype(np.float32), (Ra @ tb + ta).astype(np.float32)
 
 
 def _np_hamming(packed_a, packed_b):
@@ -75,6 +95,21 @@ class MapStore:
         self.kf_parent = np.full(K, -1, np.int64)     # spanning tree
         self.kf_loop_edges: dict[int, set] = {}
         self.next_kf = 0                              # monotonic high-water
+        # keyframe slot reuse: creation number per slot (-1 = never used),
+        # the count of keyframes ever created, erased slots (oldest first)
+        # with their parent (slot, creation number) at erasure, and per
+        # creation number of a keyframe whose slot was reused (parent slot,
+        # parent's creation number, R_cp, t_cp)
+        self.kf_seq = np.full(K, -1, np.int64)
+        self.n_kf_created = 0
+        self.kf_free: list[int] = []
+        self.kf_erased_parent: dict[int, tuple] = {}
+        self.kf_tombs: dict[int, tuple] = {}
+        self.n_kf_reused = 0
+        # callbacks run with the slot id when a freed slot is taken again
+        # (the place-recognition database resets its row); kept through a
+        # re-initialisation of the live store (Tracking.reset)
+        self.slot_listeners = getattr(self, "slot_listeners", [])
         # --- map points ---
         self.mp_valid = np.zeros(M, bool)
         self.mp_pos = np.zeros((M, 3), np.float32)
@@ -108,11 +143,21 @@ class MapStore:
     def add_keyframe(self, R, t, uv, desc_packed, octave, kp_valid,
                      timestamp=0.0, frame_id=-1, angle=None, uvr=None,
                      depth=None) -> int:
-        """Insert a keyframe; returns its id. Arrays padded to max_kp."""
-        if self.next_kf >= self.cfg.max_keyframes:
-            raise RuntimeError("MapStore keyframe capacity exhausted")
-        k = self.next_kf
-        self.next_kf += 1
+        """Insert a keyframe; returns its id. Arrays padded to max_kp.
+        Below capacity the id is ``next_kf`` (the JAX package's); at
+        capacity the oldest slot freed by ``erase_keyframe`` is reset and
+        reused. Raises only when every slot holds a live keyframe."""
+        if self.next_kf < self.cfg.max_keyframes:
+            k = self.next_kf
+            self.next_kf += 1
+        elif self.kf_free:
+            k = self.kf_free.pop(0)
+            self._reset_slot(k)
+        else:
+            raise RuntimeError("MapStore keyframe capacity exhausted: "
+                               f"{self.cfg.max_keyframes} live keyframes")
+        self.kf_seq[k] = self.n_kf_created
+        self.n_kf_created += 1
         self.kf_valid[k] = True
         self.kf_R[k] = R
         self.kf_t[k] = t
@@ -132,6 +177,77 @@ class MapStore:
         self.kf_mp[k] = -1
         self.bump()
         return k
+
+    def _reset_slot(self, k):
+        """Clear what an erased keyframe left in slot k before it is
+        reused: its per-keypoint arrays, covisibility row and column,
+        spanning-tree links, loop edges, and observations that still name
+        it. Its pose relative to its parent goes to ``kf_tombs`` first."""
+        seq = int(self.kf_seq[k])
+        parent, pseq = self.kf_erased_parent.pop(
+            k, (int(self.kf_parent[k]), -1))
+        if parent >= 0 and pseq < 0:
+            pseq = int(self.kf_seq[parent])
+        p_pose = self.keyframe_pose(parent, pseq) if parent >= 0 else None
+        R, t = self.kf_R[k].copy(), self.kf_t[k].copy()
+        if p_pose is None:          # no parent: keep the absolute pose
+            self.kf_tombs[seq] = (-1, -1, R, t)
+        else:
+            R_cp = (R @ p_pose[0].T).astype(np.float32)
+            self.kf_tombs[seq] = (parent, pseq, R_cp,
+                                  (t - R_cp @ p_pose[1]).astype(np.float32))
+        self.kf_uv[k] = 0.0
+        self.kf_desc[k] = 0
+        self.kf_octave[k] = 0
+        self.kf_angle[k] = 0.0
+        self.kf_uvr[k] = -1.0
+        self.kf_depth[k] = -1.0
+        self.kf_kp_valid[k] = False
+        self.kf_mp[k] = -1
+        self.covis[k, :] = 0
+        self.covis[:, k] = 0
+        self.kf_parent[self.kf_parent == k] = self.kf_parent[k]
+        self.kf_parent[k] = -1
+        for j in self.kf_loop_edges.pop(k, ()):
+            self.kf_loop_edges.get(j, set()).discard(k)
+        rows, _ = np.nonzero(self.mp_obs_kf == k)
+        for mp in np.unique(rows):
+            self.erase_observation(int(mp), k)
+        self.n_kf_reused += 1
+        for listener in self.slot_listeners:
+            listener(k)
+
+    def slot_is(self, kf, seq) -> bool:
+        """Whether slot `kf` still holds the keyframe created as `seq`."""
+        return kf >= 0 and self.kf_valid[kf] and self.kf_seq[kf] == seq
+
+    def keyframe_pose(self, kf, seq):
+        """World->camera pose (R, t) of the keyframe created as `seq` in
+        slot `kf`: the slot's pose while it holds that keyframe (erased
+        too: its last pose); once the slot was reused, its pose relative
+        to its parent composed with the parent's, on through parents whose
+        slots were reused as well. None if the chain is broken (a map
+        loaded without these records)."""
+        acc = None                          # T_{keyframe <- current}
+        for _ in range(self.cfg.max_keyframes):
+            if self.kf_seq[kf] == seq:
+                pose = (self.kf_R[kf], self.kf_t[kf])
+                break
+            tomb = self.kf_tombs.get(int(seq))
+            if tomb is None:
+                return None
+            kf, seq, R_cp, t_cp = tomb
+            acc = (R_cp, t_cp) if acc is None else _compose(*acc, R_cp, t_cp)
+            if kf < 0:                      # no parent: absolute
+                return acc
+        else:
+            return None
+        return pose if acc is None else _compose(*acc, *pose)
+
+    def newest_keyframe(self) -> int:
+        """The live keyframe created last, or -1."""
+        ids = self.keyframe_ids()
+        return int(ids[np.argmax(self.kf_seq[ids])]) if len(ids) else -1
 
     def n_keyframes(self):
         return int(self.kf_valid.sum())
@@ -431,6 +547,9 @@ class MapStore:
             self.kf_parent[c] = cand
         self.kf_valid[kf] = False
         self.kf_kp_valid[kf] = False
+        self.kf_free.append(int(kf))
+        self.kf_erased_parent[int(kf)] = (
+            int(parent), int(self.kf_seq[parent]) if parent >= 0 else -1)
 
     # ------------------------------------------------------------------
     # queries for the pipeline (fixed-shape device bundles)

@@ -340,6 +340,7 @@ def _search_cuda(args, th, nn_ratio, mutual, raw):
             fused_windowed_top2.captured += 1
         else:
             fused_windowed_top2.launches += 1
+            _this_thread.launches = thread_launches() + 1
     elif raw:                         # a column of INFs: (INF, first row 0)
         per_col[0].fill_(INF)
         per_col[1].zero_()
@@ -404,6 +405,14 @@ def fused_windowed_top2(q_signs, q_uv, q_radius, q_olo, q_ohi, q_valid,
 
 fused_windowed_top2.launches = 0      # kernel launches that ran
 fused_windowed_top2.captured = 0      # launches recorded into CUDA graphs
+_this_thread = threading.local()
+
+
+def thread_launches() -> int:
+    """Eager kernel launches made so far from the calling thread (graph
+    replays not included): tells one thread's searches apart from those of
+    another thread running at the same time."""
+    return getattr(_this_thread, "launches", 0)
 
 
 def fused_windowed_top2_reference(q_signs, q_uv, q_radius, q_olo, q_ohi,

@@ -26,6 +26,8 @@ class Frame:
     octave: np.ndarray            # (P,) int32
     valid: np.ndarray             # (P,) bool
     angle: np.ndarray | None = None      # (P,) float32 degrees
+    uvr: np.ndarray | None = None        # (P,) stereo right-u (<0 mono)
+    depth: np.ndarray | None = None      # (P,) depth (<0 unknown)
     timestamp: float = 0.0
     frame_id: int = -1
     # pose (world->camera); None until tracked
@@ -42,6 +44,7 @@ class Frame:
         if self.angle is None:
             self.angle = np.zeros(P, np.float32)
         self.ref_kf = -1
+        self.ref_seq = None     # the reference keyframe's creation number
         self.R_cr = None
         self.t_cr = None
         self._signs = None
@@ -50,7 +53,7 @@ class Frame:
 
     def dev(self, name):
         """Cached device copy of an immutable per-frame array (uv, octave,
-        valid, angle, desc_packed) — uploaded once per frame."""
+        valid, angle, desc_packed, uvr, depth) — uploaded once per frame."""
         hit = self._dev.get(name)
         if hit is None:
             hit = torch.as_tensor(np.ascontiguousarray(getattr(self, name)),

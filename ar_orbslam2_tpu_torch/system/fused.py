@@ -471,6 +471,7 @@ class FusedFrontend:
         self.anchor_kf = -1     # bundle anchor + its pose at snapshot time
         self.anchor_R = None
         self.anchor_t = None
+        self.anchor_seq = -1    # its creation number (store.kf_seq)
         self.rec_anchor = None  # anchor of the last COLLECTED chunk
         self.rec_ids = None     # its slot->landmark table (at dispatch)
         self._bundle_epoch = 0  # bumped at every rebuild/refresh
@@ -645,7 +646,8 @@ class FusedFrontend:
             h.done.record()
         else:
             h.host, h.done = out, None
-        h.anchor = (self.anchor_kf, self.anchor_R, self.anchor_t)
+        h.anchor = (self.anchor_kf, self.anchor_R, self.anchor_t,
+                    self.anchor_seq)
         h.epoch, h.ids = self._bundle_epoch, self.bundle_ids
         self._chunk_snaps, self._chunk_done = snaps, h.done
         return h
@@ -764,10 +766,11 @@ class FusedFrontend:
         mapping step finished (store.version changed while tracking kept
         riding the old bundle snapshot). ONE readback + ONE upload.
 
-        rel_pose: optional (R_cr, t_cr, ref_kf) of the LAST tracked frame
-        relative to its reference keyframe at record time. When given,
-        the tracked pose is RE-ANCHORED to the reference KF's current
-        (post-BA) pose — Tracking::UpdateLastFrame parity."""
+        rel_pose: optional (R_cr, t_cr, ref_kf, ref_seq) of the LAST
+        tracked frame relative to its reference keyframe at record time.
+        When given, the tracked pose is RE-ANCHORED to the reference KF's
+        current (post-BA) pose — Tracking::UpdateLastFrame parity —
+        unless that keyframe's slot was culled or reused since."""
         st = self.state
         got = self._read(dict(
             slot=st["prev_slot"], R=st["prev_R"], t=st["prev_t"],
@@ -781,8 +784,8 @@ class FusedFrontend:
         vel = (got["vel_R"], got["vel_t"]) if bool(got["have_vel"]) else None
         prev_R, prev_t = got["R"], got["t"]
         if rel_pose is not None:
-            R_cr, t_cr, ref = rel_pose
-            if ref >= 0 and self.store.kf_valid[ref]:
+            R_cr, t_cr, ref, seq = rel_pose
+            if self.store.slot_is(ref, seq):
                 prev_R = (R_cr @ self.store.kf_R[ref]).astype(np.float32)
                 prev_t = (R_cr @ self.store.kf_t[ref]
                           + t_cr).astype(np.float32)
@@ -830,11 +833,12 @@ class FusedFrontend:
         # Rigid hand-off must track the OLD anchor's own pose update
         # (snapshot -> current): T_prev' = (T_prev T_old_snap^-1) T_old_now.
         old = self.anchor_kf
-        if 0 <= old < s.cfg.max_keyframes and s.kf_valid[old]:
+        if s.slot_is(old, self.anchor_seq):
             aRc = s.kf_R[old].astype(np.float32)
             atc = s.kf_t[old].astype(np.float32)
         else:
-            # old anchor culled: no rigid correction available — keep the
+            # old anchor culled (its slot maybe reused): no rigid
+            # correction available — keep the
             # tracked pose as-is (identity hand-off)
             aRc, atc = self.anchor_R, self.anchor_t
         aRn = s.kf_R[anchor_kf].astype(np.float32)
@@ -863,6 +867,7 @@ class FusedFrontend:
         self.anchor_kf = int(anchor_kf)
         self.anchor_R = aRn.copy()
         self.anchor_t = atn.copy()
+        self.anchor_seq = int(s.kf_seq[anchor_kf])
 
     def _fold_counters(self, got=None):
         """Fold device visible/found accumulators into the MapStore.
@@ -942,6 +947,7 @@ class FusedFrontend:
         self.anchor_kf = int(anchor_kf)
         self.anchor_R = s.kf_R[anchor_kf].copy()
         self.anchor_t = s.kf_t[anchor_kf].copy()
+        self.anchor_seq = int(s.kf_seq[anchor_kf])
         self.rec_anchor = None
         self.rec_ids = None     # snapshots from before this rebuild are dead
         self._bundle_epoch += 1

@@ -1,11 +1,13 @@
 """SlamSystem — the public facade, parity with the reference System API.
 
-Port of ar_orbslam2_tpu/system/slam.py, monocular: the constructor, frame
+Port of ar_orbslam2_tpu/system/slam.py: the constructor, frame
 construction (ORB on the system's device), track_monocular,
 track_monocular_batch (per-frame, fused chunks, or the double-buffered
-pipeline with the mapping stage on a worker thread), precompile, shutdown
-and the trajectory exports. Everything runs on ``device``: the GPU unless
-the caller asks for the CPU.
+pipeline with the mapping stage on a worker thread), track_stereo and
+track_rgbd (per-frame: the fused path is monocular, as in the JAX
+package), localization mode, load_map, precompile, shutdown and the
+trajectory exports. Everything runs on ``device``: the GPU unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -29,16 +31,16 @@ MONOCULAR = "MONOCULAR"
 STEREO = "STEREO"
 RGBD = "RGBD"
 
-_ROADMAP = "ROADMAP.md, 'Modules still to port'"
+SENSORS = (MONOCULAR, STEREO, RGBD)
 
 
 @dataclass
 class SlamConfig:
-    """The JAX package's SlamConfig, defaults included. Options this port
-    does not implement yet raise NotImplementedError at construction — they
-    are never silently switched off. Runnable: monocular with any
-    combination of ``enable_loop_closing``, ``enable_relocalization``,
-    ``use_fused_tracking`` and ``async_mapping``.
+    """The JAX package's SlamConfig, defaults included. Every option of it
+    runs; an unknown sensor name raises at construction. Depth sensors
+    (STEREO, RGBD) track per frame (``use_fused_tracking`` applies to the
+    monocular image path only, as in the JAX package) and close loops with
+    the scale fixed.
     """
     sensor: str = MONOCULAR
     map: MapConfig = field(default_factory=MapConfig)
@@ -52,11 +54,9 @@ class SlamConfig:
     async_mapping: bool = False
 
     def __post_init__(self):
-        if self.sensor != MONOCULAR:
-            raise NotImplementedError(
-                f"sensor={self.sensor} is not ported to "
-                f"ar_orbslam2_tpu_torch yet ({_ROADMAP}, item 5: "
-                "stereo/RGB-D)")
+        if self.sensor not in SENSORS:
+            raise ValueError(f"unknown sensor {self.sensor!r}: one of "
+                             f"{', '.join(SENSORS)}")
 
 
 def per_frame_config(**kw) -> SlamConfig:
@@ -85,6 +85,14 @@ class SlamSystem:
             cfg = replace(cfg, map=replace(
                 cfg.map, scale_factor=cfg.tracking.scale_factor,
                 n_levels=cfg.tracking.n_levels))
+        # stereo/RGB-D close-point threshold: ThDepth * baseline meters
+        # (parity: mThDepth = mbf * ThDepth / fx, Tracking ctor), derived
+        # from THIS camera on a copy of the caller's config
+        if cfg.sensor != MONOCULAR:
+            th_m = cfg.depth_threshold * (cam.bf / cam.fx) \
+                if cam.bf > 0 else cfg.depth_threshold
+            cfg = replace(cfg, tracking=replace(
+                cfg.tracking, depth_threshold_m=float(th_m)))
         self.cfg = cfg
         self.store = MapStore(cfg.map)
         self.mapper = LocalMapper(self.store, cam, cfg.mapper,
@@ -135,9 +143,12 @@ class SlamSystem:
         out = extract_orb(img, self._orb_cfg)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def make_frame(self, image_u8=None, features=None, timestamp=0.0) -> Frame:
+    def make_frame(self, image_u8=None, features=None, timestamp=0.0,
+                   uvr=None, depth=None) -> Frame:
         """Build a Frame from an image (ORB extraction) or a feature dict
-        (uv / desc (bits) / octave / valid [/ angle]) padded to max_kp."""
+        (uv / desc (bits) / octave / valid [/ angle]) padded to max_kp,
+        with optional per-keypoint stereo right-u and depth (-1 where
+        unknown)."""
         if features is None:
             if image_u8 is None:
                 raise ValueError("make_frame needs an image or features")
@@ -168,6 +179,9 @@ class SlamSystem:
             valid=pad(features["valid"].astype(bool), False),
             angle=pad(features.get("angle",
                                    np.zeros(P, np.float32)).astype(np.float32)),
+            uvr=None if uvr is None else pad(uvr.astype(np.float32), -1.0),
+            depth=None if depth is None else pad(depth.astype(np.float32),
+                                                 -1.0),
             timestamp=timestamp, frame_id=self._next_frame_id,
             device=self.device)
         self._next_frame_id += 1
@@ -370,6 +384,71 @@ class SlamSystem:
             pending = nxt
         return poses
 
+    def track_stereo(self, left_u8, right_u8, timestamp=0.0):
+        """Parity: System::TrackStereo — ORB on both images, the stereo
+        match and its subpixel refinement, then per-frame tracking.
+        Returns Tcw (4x4) or None. The ms of the feature stage (both
+        extractions, the match and the refinement; a readback ends it)
+        lands in the frame's metrics record as t_features_ms."""
+        from ..frontend.stereo import stereo_frame_features
+        t0 = time.perf_counter()
+        feats, uvr, depth = stereo_frame_features(self, left_u8, right_u8)
+        self.tracking._dbg["t_features_ms"] = round(
+            (time.perf_counter() - t0) * 1e3, 2)
+        frame = self.make_frame(features=feats, timestamp=timestamp,
+                                uvr=uvr, depth=depth)
+        return self._track_with_depth(frame)
+
+    def track_rgbd(self, image_u8=None, depth_m=None, timestamp=0.0,
+                   features=None, kp_depth=None):
+        """Parity: System::TrackRGBD — depth in meters (already scaled).
+        kp_depth: optional per-keypoint depth (skips depth-map sampling,
+        for feature-level synthetic pipelines). The depth map is sampled
+        on the host at the rounded keypoint (numpy's round half to even),
+        as in the JAX package. The ORB extraction's ms (a readback ends
+        it) lands in the frame's metrics record as t_features_ms."""
+        t0 = time.perf_counter()
+        frame = self.make_frame(image_u8, features, timestamp)
+        if features is None:
+            self.tracking._dbg["t_features_ms"] = round(
+                (time.perf_counter() - t0) * 1e3, 2)
+        if kp_depth is not None:
+            z = np.asarray(kp_depth, np.float32)[:len(frame.uv)]
+        else:
+            # sample depth at keypoint locations -> stereo-equivalent uvr
+            d = np.asarray(depth_m)
+            ui = np.clip(frame.uv[:, 0].round().astype(int), 0,
+                         d.shape[1] - 1)
+            vi = np.clip(frame.uv[:, 1].round().astype(int), 0,
+                         d.shape[0] - 1)
+            z = d[vi, ui].astype(np.float32)
+        if len(z) < len(frame.uv):
+            z = np.pad(z, (0, len(frame.uv) - len(z)),
+                       constant_values=-1.0)
+        good = frame.valid & (z > 0)
+        frame.depth = np.where(good, z, -1.0).astype(np.float32)
+        if self.cam.bf > 0:
+            frame.uvr = np.where(good, frame.uv[:, 0] - self.cam.bf
+                                 / np.maximum(z, 1e-6), -1.0
+                                 ).astype(np.float32)
+        return self._track_with_depth(frame)
+
+    def _track_with_depth(self, frame):
+        rec = self.tracking.track(frame)
+        self.last_frame = frame
+        if rec.get("ok") and frame.R is not None:
+            return self._pose_matrix(frame.R, frame.t)
+        return None
+
+    def activate_localization_mode(self):
+        """Parity: System::ActivateLocalizationMode — track against the
+        map without extending it."""
+        self.tracking.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.tracking.only_tracking = False
+        self.tracking.vo = False
+
     def precompile(self, n_frames=40):
         """Build every kernel, warm every device code path and capture
         every CUDA graph the live system can hit, ON THE CALLING THREAD,
@@ -384,7 +463,11 @@ class SlamSystem:
 
         Strategy: drive a THROWAWAY synchronous twin system through a
         short synthetic sequence (the frontend, the initializer, the fused
-        chunk and per-frame steps, the whole mapping stage), touch the
+        chunk and per-frame steps, the whole mapping stage; a depth sensor's
+        twin tracks a rendered stereo pair sequence through track_stereo,
+        or track_rgbd with the stereo depth per keypoint, so the second
+        extraction, the stereo match and the depth keyframe path run on
+        this thread too), touch the
         async-only paths with dummy-shaped calls (the pipelined device
         refresh, the deferred-keyframe pose re-alignment), then capture
         this system's own frame step. With a relocalizer the twin is sent
@@ -401,18 +484,34 @@ class SlamSystem:
         once on its own thread and stream, whose cuBLAS and cuSOLVER
         handles are its own."""
         from ..data import synthetic
+        from ..frontend.stereo import stereo_frame_features
         from .tracking import _bound_pose_opt
 
         cfg = copy.copy(self.cfg)
         cfg.async_mapping = False
         twin = SlamSystem(self.cam, cfg, device=self.device, seed=self.seed)
-        imgs, _, _ = synthetic.render_plane_sequence(
-            self.cam, n_frames=n_frames, seed=123, motion=0.45)
-        twin.track_monocular_batch(
-            list(imgs), timestamps=[i / 30.0 for i in range(n_frames)],
-            chunk=8)
+        if cfg.sensor == MONOCULAR:
+            imgs, _, _ = synthetic.render_plane_sequence(
+                self.cam, n_frames=n_frames, seed=123, motion=0.45)
+            twin.track_monocular_batch(
+                list(imgs), timestamps=[i / 30.0 for i in range(n_frames)],
+                chunk=8)
+            track = twin.track_monocular
+        else:
+            imgs, right, _, _ = synthetic.render_stereo_plane_sequence(
+                self.cam, n_frames=n_frames, seed=123, motion=0.45)
+
+            def track(img, timestamp):
+                i = min(int(round(timestamp * 30.0)), n_frames - 1)
+                if cfg.sensor == STEREO:
+                    return twin.track_stereo(img, right[i], timestamp)
+                _, _, depth = stereo_frame_features(twin, img, right[i])
+                return twin.track_rgbd(img, timestamp=timestamp,
+                                       kp_depth=depth)
+            for i in range(n_frames):
+                track(imgs[i], i / 30.0)
         # per-frame fused step
-        twin.track_monocular(imgs[-1], timestamp=n_frames / 30.0)
+        track(imgs[-1], timestamp=n_frames / 30.0)
         fe = twin.tracking.fused
         if fe is not None and fe.state is not None \
                 and twin.tracking.ref_kf >= 0:
@@ -432,14 +531,13 @@ class SlamSystem:
         t = twin.tracking
         t.fused = None
         for j in range(2):       # motion-model path (static camera: OK)
-            twin.track_monocular(imgs[-1],
-                                 timestamp=(n_frames + 1 + j) / 30.0)
+            track(imgs[-1], timestamp=(n_frames + 1 + j) / 30.0)
         t.velocity = None        # forces the reference-keyframe fallback
-        twin.track_monocular(imgs[-1], timestamp=(n_frames + 3) / 30.0)
+        track(imgs[-1], timestamp=(n_frames + 3) / 30.0)
         if t.relocalizer is not None and twin.store.n_keyframes() > 0:
             t.state = "LOST"     # the relocalization path, eagerly
             t.velocity = None
-            twin.track_monocular(imgs[-1], timestamp=(n_frames + 4) / 30.0)
+            track(imgs[-1], timestamp=(n_frames + 4) / 30.0)
         if twin.tracking.loop_closer is not None:
             self._warm_loop_legs(twin)
         twin.shutdown()
@@ -522,13 +620,79 @@ class SlamSystem:
         from ..mapstore.checkpoint import save_map
         save_map(self.store, path)
 
+    def load_map(self, path, localization_only=True):
+        """Restore a saved map (either package's file) into the live store;
+        by default enter localization-only mode (track against the loaded
+        map without extending it). Parity with the JAX package's load_map
+        (slam.py:554-573), which swaps the store's whole ``__dict__`` (its
+        lock included, under a running worker) and rebuilds the database
+        only with a loop closer. Here the mapping worker is drained and a
+        background BA dropped first, the arrays are copied into the live
+        store under its own lock and its version bumped; every cache of the
+        old map goes (the local-bundle cache, the mapper's recent
+        landmarks, the last frame and the velocity, the fused state,
+        rebuilt after the first relocalization); and the shared
+        place-recognition database is rebuilt from the loaded keyframes
+        whenever the system has one, so a relocalizer without a loop
+        closer searches the loaded map too (ROADMAP.md §3)."""
+        from ..mapstore.checkpoint import _ARRAYS, load_map
+        loaded = load_map(path)
+        s, t = self.store, self.tracking
+        if loaded.cfg.max_keyframes != s.cfg.max_keyframes \
+                or loaded.cfg.max_map_points != s.cfg.max_map_points \
+                or loaded.cfg.max_kp != s.cfg.max_kp \
+                or loaded.cfg.max_obs != s.cfg.max_obs:
+            raise ValueError(f"{path}: map capacities {loaded.cfg} do not "
+                             f"match this system's {s.cfg}")
+        if t.async_mapper is not None:
+            t.async_mapper.join()
+        if t.loop_closer is not None:
+            t.loop_closer.gba.abort()
+        with s.lock:
+            for name in _ARRAYS:
+                getattr(s, name)[...] = getattr(loaded, name)
+            s.mp_replaced[...] = loaded.mp_replaced
+            s.mp_free = list(loaded.mp_free)
+            s.next_kf = loaded.next_kf
+            s.kf_loop_edges = loaded.kf_loop_edges
+            s.kf_seq[...] = loaded.kf_seq
+            s.n_kf_created = loaded.n_kf_created
+            s.kf_free = list(loaded.kf_free)
+            s.kf_erased_parent = {}
+            s.kf_tombs = {}
+            s.bump()
+            self.mapper.recent.clear()
+            t._local_bundle_cache = None
+            if t.fused is not None:
+                t.fused.state = None
+                t.fused.version = -1
+            t.state = "LOST"
+            t.velocity = None
+            t.last_frame = self.last_frame = None
+            t.init_frame = None
+            t.vo = False
+            t.last_rel = None
+            t._fused_prev_pose = None
+            t.ref_kf = s.newest_keyframe()
+        if t.loop_closer is not None:
+            t.loop_closer.reset()       # empties the shared database
+        elif self.kfdb is not None:
+            self.kfdb.reset()
+        if self.kfdb is not None:
+            for kf in s.keyframe_ids():
+                self.kfdb.add(int(kf))
+        if localization_only:
+            self.activate_localization_mode()
+
     # ------------------------------------------------------------------
     # trajectory export (System::SaveTrajectory* parity)
     # ------------------------------------------------------------------
     def keyframe_trajectory(self):
-        """(timestamps, R_wc, t_wc) over live keyframes, id order."""
+        """(timestamps, R_wc, t_wc) over live keyframes in creation order
+        (id order until a keyframe slot is reused)."""
         s = self.store
         ids = s.keyframe_ids()
+        ids = ids[np.argsort(s.kf_seq[ids], kind="stable")]
         R_cw = s.kf_R[ids]
         t_cw = s.kf_t[ids]
         R_wc = np.swapaxes(R_cw, -1, -2)
@@ -538,16 +702,22 @@ class SlamSystem:
     def frame_trajectory(self):
         """Per-frame camera-to-world poses for all tracked frames,
         re-composed against the FINAL (BA-refined) reference-KF poses.
-        Parity: System::SaveTrajectoryTUM's Tcr * Trw recomposition."""
+        Parity: System::SaveTrajectoryTUM's Tcr * Trw recomposition; a
+        frame whose reference keyframe's slot was reused goes through the
+        erased keyframe's parent (SaveTrajectoryTUM's walk over bad
+        keyframes, ``MapStore.keyframe_pose``)."""
         s = self.store
         ts, Rs, tss = [], [], []
         for rec in self.tracking.metrics:
             if "R" not in rec or not rec["ok"]:
                 continue
+            anchor = None
             if "R_cr" in rec and rec.get("ref_kf", -1) >= 0:
-                ref = rec["ref_kf"]
-                R_cw = rec["R_cr"] @ s.kf_R[ref]
-                t_cw = rec["R_cr"] @ s.kf_t[ref] + rec["t_cr"]
+                anchor = s.keyframe_pose(rec["ref_kf"], rec["ref_seq"])
+            if anchor is not None:
+                R_rw, t_rw = anchor
+                R_cw = rec["R_cr"] @ R_rw
+                t_cw = rec["R_cr"] @ t_rw + rec["t_cr"]
             else:
                 R_cw, t_cw = rec["R"], rec["t"]
             R_wc = R_cw.T

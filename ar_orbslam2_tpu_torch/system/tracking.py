@@ -26,7 +26,17 @@ closer (loop/loop_closing.py), or without one into the relocalizer's
 place-recognition database, on the thread that finishes its mapping; the
 two share one database.
 
-Not ported yet: localization mode and stereo/RGB-D (see ROADMAP.md).
+Depth sensors (stereo, RGB-D): a frame with at least 100 keypoints of
+known depth initializes the map from that one frame at metric scale
+(``_initialize_stereo``); the keyframe decision adds the close-point
+census, and every keyframe seeds landmarks from its depth
+(``_create_depth_points``). Localization mode (``only_tracking``) freezes
+the map: no keyframe is inserted, no reset follows an early loss, and when
+fewer than 10 map points stay matched the frame is tracked on temporal
+points unprojected from the last frame's depth (the ``vo`` regime, the
+reference's mbVO), with a relocalization attempt every frame until the map
+is found again.
+
 Without a relocalizer a failed frame goes LOST, as it does in the JAX
 package with relocalization disabled.
 """
@@ -67,6 +77,12 @@ class TrackingConfig:
     scale_factor: float = 1.2
     n_levels: int = 8
     reset_if_lost_before_kfs: int = 5
+    # stereo/RGB-D: create landmarks from keypoints closer than this depth
+    # at every new keyframe (meters; 0 = disabled/monocular). Parity:
+    # mThDepth = ThDepth * baseline (Tracking ctor); SlamSystem sets it
+    depth_threshold_m: float = 0.0
+    # always seed at least this many closest depth points per new KF
+    min_depth_points: int = 100
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +181,7 @@ class _FrameShim:
         self.R = R
         self.t = t
         self.ref_kf = -1
+        self.ref_seq = None
         self.R_cr = None
         self.t_cr = None
 
@@ -185,7 +202,11 @@ class Tracking:
         self.loop_closer = loop_closer
         self.fused = None                   # FusedFrontend (image mono path)
         self.async_mapper = None            # AsyncMapper (mapping thread)
-        self.only_tracking = False          # localization mode: not ported
+        self.only_tracking = False          # localization mode
+        # localization-mode VO regime (parity: Tracking::mbVO): True while
+        # tracking rides temporal depth points instead of the map;
+        # relocalization is attempted every frame until the map is back
+        self.vo = False
         self.state = NOT_INITIALIZED
         self.last_frame: Frame | None = None
         self.velocity = None                # (R, t) of T_cur * T_last^-1
@@ -194,7 +215,7 @@ class Tracking:
         self.last_reloc_frame_id = -1_000_000
         self.init_frame: Frame | None = None
         self.metrics: list[dict] = []
-        self.last_rel = None      # (R_cr, t_cr, ref_kf) of last OK frame
+        self.last_rel = None      # (R_cr, t_cr, ref_kf, ref_seq), last OK frame
         self._inl_peak = 0.0      # max inliers SINCE LAST KF (c2_live ref)
         self._inl_decay = 0.0     # decaying peak, survives KF inserts
         #                           (hard-decline barrier reference)
@@ -213,7 +234,11 @@ class Tracking:
     def track(self, frame: Frame) -> dict:
         """Process one frame; returns a metrics dict incl. pose if OK."""
         if self.state == NOT_INITIALIZED:
-            ok = self._initialize_monocular(frame)
+            if frame.depth is not None and \
+                    int((frame.depth > 0).sum()) >= 100:
+                ok = self._initialize_stereo(frame)
+            else:
+                ok = self._initialize_monocular(frame)
             rec = self._record(frame, ok_flag=ok, n_inliers=0)
             self.last_frame = frame
             return rec
@@ -226,13 +251,33 @@ class Tracking:
 
         n_inliers = 0
         ok = False
+        vo_tracked = False
         if self.state == OK:
             ok, n_inliers = self._track_from_last(frame)
+            if self.only_tracking and ok:
+                # mbVO: fewer than 10 map-point inliers means the frame
+                # rides temporal/VO points, not the map
+                mp = frame.mp
+                n_map = int(((mp >= 0)
+                             & self.store.mp_valid[np.maximum(mp, 0)]).sum())
+                self.vo = n_map < 10
+                vo_tracked = self.vo
+        if self.only_tracking and self.vo:
+            # VO regime: attempt relocalization EVERY frame; a success
+            # re-acquires the map (parity: the bOKReloc branch)
+            ok_r, n_r = self._relocalize(frame)
+            if ok_r:
+                self.vo = False
+                vo_tracked = False
+                ok, n_inliers = ok_r, n_r
+                self.last_reloc_frame_id = frame.frame_id
         if self.state == LOST or not ok:
             ok, n_inliers = self._relocalize(frame)
             if ok:
                 self.last_reloc_frame_id = frame.frame_id
-        if ok:
+                self.vo = False
+                vo_tracked = False
+        if ok and not vo_tracked:
             ok, n_inliers = self._track_local_map(frame, n_inliers)
 
         if ok:
@@ -247,7 +292,10 @@ class Tracking:
             self.state = LOST
             self.velocity = None
             # reset-if-lost-early (Tracking::Track "lost soon after init")
-            if self.store.n_keyframes() <= self.cfg.reset_if_lost_before_kfs:
+            # is a mapping-mode recovery: in localization mode the frozen
+            # map must survive
+            if not self.only_tracking and self.store.n_keyframes() \
+                    <= self.cfg.reset_if_lost_before_kfs:
                 self.reset()
         rec = self._record(frame, ok_flag=ok, n_inliers=n_inliers)
         self.last_frame = frame
@@ -403,7 +451,7 @@ class Tracking:
                 # on the current device bundle; the bundle refreshes at
                 # a later chunk boundary once the mapper is idle
                 kf = self._insert_keyframe(frame)
-                self.async_mapper.submit(kf)
+                self.async_mapper.submit(kf, self.store.kf_seq[kf])
                 self.last_frame = frame
             else:
                 self._create_keyframe(frame)
@@ -515,7 +563,8 @@ class Tracking:
             if fe.rec_anchor is not None:
                 anchor_info = fe.rec_anchor
             else:
-                anchor_info = (fe.anchor_kf, fe.anchor_R, fe.anchor_t)
+                anchor_info = (fe.anchor_kf, fe.anchor_R, fe.anchor_t,
+                               fe.anchor_seq)
             # on a hard break insert the HEALTHIEST frame since the last
             # KF decision, not the collapse frame: the peak frame holds
             # nearly the same forward coverage with a sound pose; the
@@ -567,9 +616,10 @@ class Tracking:
                     # + fuse) here; local BA goes back to the worker —
                     # the next chunk needs new LANDMARKS, not BA polish
                     self.mapper.process_keyframe(kf, do_ba=False)
-                    am.submit_task(lambda: self._finish_kf_async(kf))
+                    seq = int(self.store.kf_seq[kf])
+                    am.submit_task(lambda: self._finish_kf_async(kf, seq))
                 elif am is not None:
-                    am.submit(kf)
+                    am.submit(kf, self.store.kf_seq[kf])
                 else:
                     self.mapper.process_keyframe(kf)
                 self.last_frame = frame
@@ -617,9 +667,12 @@ class Tracking:
         return n_inl
 
     def _reanchor_frame(self, frame, anchor_info):
-        """Rigidly move a snapshot-frame pose into the current map frame."""
-        anchor, a_R, a_t = anchor_info
-        if anchor >= 0 and self.store.kf_valid[anchor]:
+        """Rigidly move a snapshot-frame pose into the current map frame.
+        anchor_info: (anchor keyframe, its R and t at the snapshot, its
+        creation number: an anchor whose slot was reused since is
+        skipped)."""
+        anchor, a_R, a_t, seq = anchor_info
+        if self.store.slot_is(anchor, seq):
             R_cr = frame.R @ a_R.T
             t_cr = frame.t - R_cr @ a_t
             with self.store.lock:
@@ -627,10 +680,13 @@ class Tracking:
                     R_cr @ self.store.kf_R[anchor],
                     R_cr @ self.store.kf_t[anchor] + t_cr)
 
-    def _finish_kf_async(self, kf):
+    def _finish_kf_async(self, kf, seq):
         """Worker-side tail of a HARD keyframe event: the BA + loop
-        stages deferred out of the barrier. Returns None so the worker does
+        stages deferred out of the barrier (skipped if the keyframe's slot
+        was culled and reused meanwhile). Returns None so the worker does
         not run process_keyframe again."""
+        if self.store.kf_seq[kf] != seq:
+            return None
         if self.store.kf_valid[kf]:
             self.mapper.local_bundle_adjustment(kf)
             self.mapper.cull_keyframes(kf)
@@ -706,22 +762,27 @@ class Tracking:
                 # DISPATCH (a pipelined device-side refresh may have
                 # swapped the live anchor since)
                 if fe.rec_anchor is not None:
-                    ref, R_rw, t_rw = fe.rec_anchor
+                    ref, R_rw, t_rw, ref_seq = fe.rec_anchor
                 else:
-                    ref = fe.anchor_kf
+                    ref, ref_seq = fe.anchor_kf, fe.anchor_seq
                     R_rw, t_rw = fe.anchor_R, fe.anchor_t
             elif ref >= 0:
                 with self.store.lock:   # vs async mapper write-backs
                     R_rw = self.store.kf_R[ref].copy()
                     t_rw = self.store.kf_t[ref].copy()
+                    ref_seq = int(self.store.kf_seq[ref])
             rec["ref_kf"] = ref
             if ref >= 0:
+                # the anchor's creation number: export and UpdateLastFrame
+                # tell a reused slot from the anchor by it
+                rec["ref_seq"] = ref_seq
+                frame.ref_seq = ref_seq
                 R_cr = frame.R @ R_rw.T
                 rec["R_cr"] = R_cr
                 rec["t_cr"] = frame.t - R_cr @ t_rw
                 # last frame's KF-relative pose: lets the fused bundle
                 # refresh RE-ANCHOR the tracked pose to the post-BA map
-                self.last_rel = (R_cr, rec["t_cr"], ref)
+                self.last_rel = (R_cr, rec["t_cr"], ref, ref_seq)
                 # anchor the frame to its reference KF so UpdateLastFrame
                 # can re-compose against the KF's post-BA pose
                 frame.ref_kf = ref
@@ -730,13 +791,18 @@ class Tracking:
         self.metrics.append(rec)
         return rec
 
+    def _anchor_live(self, frame) -> bool:
+        """Whether the frame's reference keyframe slot still holds the
+        keyframe the frame was anchored to (not culled and reused)."""
+        return self.store.slot_is(frame.ref_kf, frame.ref_seq)
+
     def _update_last_frame(self):
         """Parity: Tracking::UpdateLastFrame — re-anchor the last frame's
         pose to its reference keyframe's CURRENT pose before motion
         prediction (local BA moves keyframes between frames)."""
         last = self.last_frame
         ref = getattr(last, "ref_kf", -1)
-        if last is None or ref < 0 or not self.store.kf_valid[ref]:
+        if last is None or ref < 0 or not self._anchor_live(last):
             return
         R_cw = last.R_cr @ self.store.kf_R[ref]
         t_cw = last.R_cr @ self.store.kf_t[ref] + last.t_cr
@@ -828,27 +894,83 @@ class Tracking:
         self._register_kf_in_db(kf0)
         self._register_kf_in_db(kf1)
 
+    def _unproject(self, frame: Frame, feats):
+        """World positions of keypoints `feats` from their measured depth
+        (host float32, the JAX package's arithmetic)."""
+        cam = self.cam
+        z = frame.depth[feats]
+        x = (frame.uv[feats, 0] - cam.cx) * z / cam.fx
+        y = (frame.uv[feats, 1] - cam.cy) * z / cam.fy
+        xc = np.stack([x, y, z], -1).astype(np.float32)
+        return (xc - frame.t) @ frame.R
+
+    def _initialize_stereo(self, frame: Frame) -> bool:
+        """Parity: Tracking::StereoInitialization (JAX tracking.py:921-949)
+        — unproject keypoints with known depth into landmarks, one
+        keyframe at the identity, state OK. The map is written under the
+        store lock (the JAX function writes without it)."""
+        s = self.store
+        frame.set_pose(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        with s.lock:
+            kf = s.add_keyframe(frame.R, frame.t, frame.uv,
+                                frame.desc_packed, frame.octave, frame.valid,
+                                timestamp=frame.timestamp,
+                                frame_id=frame.frame_id, angle=frame.angle,
+                                uvr=frame.uvr, depth=frame.depth)
+            feats = np.nonzero(frame.valid & (frame.depth > 0))[0]
+            xw = self._unproject(frame, feats)
+            ids = s.add_map_points(xw, frame.desc_packed[feats], first_kf=kf)
+            s.add_observations(ids, kf, feats)
+            s.compute_distinctive_descriptors(ids)
+            s.update_normal_and_depth(ids)
+            s.update_connections(kf)
+            frame.mp[feats] = ids
+            self.ref_kf = kf
+            self.last_kf_frame_id = frame.frame_id
+        self.state = OK
+        self._register_kf_in_db(kf)
+        return True
+
     # ------------------------------------------------------------------
     # frame-to-frame tracking
     # ------------------------------------------------------------------
     def _gather_frame_landmarks(self, frame: Frame):
         """Fixed-shape bundle of the landmarks bound to a frame: (pos,
-        packed desc, octave, live) on the device + host landmark ids."""
+        packed desc, octave, live) on the device + host landmark ids.
+
+        In localization mode with a depth sensor, keypoints WITHOUT a map
+        binding but with measured depth become temporal "visual odometry"
+        points (parity: the temporal MapPoints of Tracking::UpdateLastFrame,
+        JAX tracking.py:952-982), so the motion search can ride
+        frame-to-frame geometry off the map. Their descriptors are the
+        frame's own, packed (the search kernel reads the packed form)."""
         s = self.store
         mp = frame.mp
         map_live = (mp >= 0) & s.mp_valid[np.maximum(mp, 0)]
         sel = np.where(map_live, mp, 0)
-        return (self._t(s.mp_pos[sel]), self._t(s.mp_desc[sel]),
-                self._t(frame.octave), self._t(map_live),
-                np.where(map_live, mp, -1))
+        pos = s.mp_pos[sel]
+        desc = s.mp_desc[sel]
+        live = map_live
+        if self.only_tracking and frame.depth is not None \
+                and frame.R is not None:
+            vo = (~map_live) & frame.valid & (frame.depth > 0)
+            if vo.any():
+                pos[vo] = self._unproject(frame, vo)
+                desc[vo] = frame.desc_packed[vo]
+                live = map_live | vo
+        return (self._t(pos), self._t(desc), self._t(frame.octave),
+                self._t(live), np.where(map_live, mp, -1))
 
     def _track_from_last(self, frame: Frame):
         """TrackWithMotionModel with TrackReferenceKeyFrame fallback."""
         cfg = self.cfg
         self._update_last_frame()
         last = self.last_frame
+        # in localization mode a depth frame carries its own temporal points
+        can_vo = (self.only_tracking and last is not None
+                  and last.depth is not None)
         if (self.velocity is not None and last is not None
-                and last.R is not None and (last.mp >= 0).any()):
+                and last.R is not None and ((last.mp >= 0).any() or can_vo)):
             R_pred, t_pred = _compose(*self.velocity, last.R, last.t)
             pos, desc, oct_, live, mp_ids = self._gather_frame_landmarks(last)
             R, t, n_inl, n_match, kp_match = _host(*_motion_track(
@@ -979,8 +1101,11 @@ class Tracking:
     # keyframe decision + creation
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, frame: Frame, n_inliers) -> bool:
-        """Parity: Tracking::NeedNewKeyFrame (monocular): a time trigger
-        (c1a/c1b) AND the tracked-vs-reference condition c2."""
+        """Parity: Tracking::NeedNewKeyFrame (JAX tracking.py:1142-1197): a
+        time trigger (c1a/c1b) AND the tracked-vs-reference condition c2.
+        For depth sensors the close-point census (bNeedToInsertClose)
+        drives the cadence, with the reference's 0.75 ratio and the c1c
+        trigger."""
         cfg, s = self.cfg, self.store
         if self.only_tracking:
             return False
@@ -994,10 +1119,23 @@ class Tracking:
         ref_mp = s.kf_mp[self.ref_kf]
         ref_mp = ref_mp[ref_mp >= 0]
         n_ref = int((s.mp_nobs[ref_mp] >= min_obs).sum()) if len(ref_mp) else 0
+        ratio = cfg.kf_ref_ratio
+        need_close = False
+        depth_sensor = (getattr(frame, "depth", None) is not None
+                        and cfg.depth_threshold_m > 0)
+        if depth_sensor:
+            close = (frame.valid & (frame.depth > 0)
+                     & (frame.depth < cfg.depth_threshold_m))
+            tracked = frame.mp >= 0
+            n_tc = int((close & tracked).sum())
+            n_ntc = int((close & ~tracked).sum())
+            need_close = n_tc < 100 and n_ntc > 70
+            ratio = 0.75
         fid = frame.frame_id
         c1a = fid >= self.last_kf_frame_id + cfg.max_frames_between_kf
         c1b = fid >= self.last_kf_frame_id + cfg.min_frames_between_kf
-        c2 = (n_inliers < cfg.kf_ref_ratio * n_ref
+        c1c = depth_sensor and (n_inliers < 0.25 * n_ref or need_close)
+        c2 = ((n_inliers < ratio * n_ref or need_close)
               and n_inliers > cfg.min_matches_new_kf)
         if isinstance(frame, _FrameShim):
             # Fused path: ref_kf is PINNED to the last-created KF between
@@ -1009,10 +1147,10 @@ class Tracking:
             # still healthy. The 4x-min floor keeps Poisson noise under the
             # 10% threshold; below it only the time trigger fires.
             c2_live = (self._inl_peak >= 4 * cfg.min_inliers_local
-                       and n_inliers < cfg.kf_ref_ratio * self._inl_peak
+                       and n_inliers < ratio * self._inl_peak
                        and n_inliers > cfg.min_matches_new_kf)
             return bool((c1a and c2) or c2_live)
-        return bool((c1a or c1b) and c2)
+        return bool((c1a or c1b or c1c) and c2)
 
     def _insert_keyframe(self, frame: Frame, record_dbg: bool = True) -> int:
         """Store-side keyframe insertion (cheap, synchronous): the part of
@@ -1022,11 +1160,14 @@ class Tracking:
             kf = s.add_keyframe(frame.R, frame.t, frame.uv,
                                 frame.desc_packed, frame.octave,
                                 frame.valid, timestamp=frame.timestamp,
-                                frame_id=frame.frame_id, angle=frame.angle)
+                                frame_id=frame.frame_id, angle=frame.angle,
+                                uvr=frame.uvr, depth=frame.depth)
             feats = np.nonzero(frame.mp >= 0)[0]
             mps = frame.mp[feats]
             live = s.mp_valid[mps]
             s.add_observations(mps[live], kf, feats[live])
+            if frame.depth is not None and self.cfg.depth_threshold_m > 0:
+                self._create_depth_points(frame, kf, record_dbg)
             # publish ref_kf/last_kf_frame_id INSIDE the store lock: the
             # deferred (worker-thread) insert otherwise exposes a torn
             # trio to the tracking thread's rebuild/cadence reads
@@ -1050,6 +1191,44 @@ class Tracking:
         t0 = time.perf_counter()
         self._close_loops(kf)
         self._dbg["t_loop_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+
+    def _create_depth_points(self, frame: Frame, kf: int,
+                             record_dbg: bool = True) -> int:
+        """Stereo/RGB-D landmark seeding at a new keyframe (JAX
+        tracking.py:1247-1288). Parity: Tracking::CreateNewKeyFrame's
+        stereo branch: sort keypoints by measured depth and unproject every
+        one closer than ThDepth·baseline (plus at least the 100 closest)
+        that is not already bound to a surviving landmark. The new points
+        join the mapper's recent set (MapPointCulling). Caller holds
+        store.lock."""
+        s, cfg = self.store, self.cfg
+        z = frame.depth
+        cand = np.nonzero(frame.valid & (z > 0))[0]
+        if len(cand) == 0:
+            return 0
+        bound = frame.mp[cand]
+        has_mp = (bound >= 0) & s.mp_valid[np.maximum(bound, 0)] \
+            & (s.mp_nobs[np.maximum(bound, 0)] >= 1)
+        cand = cand[~has_mp]
+        if len(cand) == 0:
+            return 0
+        cand = cand[np.argsort(z[cand], kind="stable")]
+        keep = z[cand] < cfg.depth_threshold_m
+        keep[:cfg.min_depth_points] = True
+        cand = cand[keep]
+        if len(cand) == 0:
+            return 0
+        xw = self._unproject(frame, cand)
+        ids = s.add_map_points(xw, frame.desc_packed[cand], first_kf=kf)
+        s.add_observations(ids, kf, cand)
+        frame.mp[cand] = ids
+        s.compute_distinctive_descriptors(ids)
+        s.update_normal_and_depth(ids)
+        seq = int(s.kf_seq[kf])
+        self.mapper.recent.update((int(m), seq) for m in ids)
+        if record_dbg:      # worker-thread inserts must not touch _dbg
+            self._dbg["n_depth_mp"] = len(ids)
+        return len(ids)
 
     def _close_loops(self, kf: int):
         """A finished keyframe goes to the loop closer, or without one into
@@ -1100,6 +1279,7 @@ class Tracking:
         self._low_streak = 0
         self.state = NOT_INITIALIZED
         self.velocity = None
+        self.vo = False
         self.ref_kf = -1
         self.init_frame = None
         self.last_kf_frame_id = -1

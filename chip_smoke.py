@@ -61,8 +61,8 @@ non-zero before the final line):
                 keyframes; LoopCloserConfig(min_kf_gap=8,
                 consistency_threshold=1) as in tests/test_loop_reloc.py):
                 a camera translating once around a circle over the textured
-                plane, its view tilted 0.35 rad from the plane's normal (400
-                frames at 640x480, the end revisits the start),
+                plane, its view tilted 0.35 rad from the plane's normal (440
+                frames at 640x480: 1.1 turns, the end revisits the start),
                 through precompile() and track_monocular_batch(chunk=8),
                 with SlamConfig() (the loop closes inline: sync) and with
                 SlamConfig(async_mapping=True) (on the mapping worker, the
@@ -75,16 +75,43 @@ non-zero before the final line):
                 run's own inputs; the keyframe ATE with loops (sync and
                 async) below the same sequence's without. Then
                 test_loop_closure_improves_ate's noisy orbit at that test's
-                size, loops on and off (>= 1 loop; ATE reported), and the
-                loop facing the plane squarely (reported: there a wrong
-                Sim3 gets through, ROADMAP.md §3). Prints the
-                loop's stage times, the global BA's device time and the
+                size, loops on and off (>= 1 loop; ATE reported). Prints
+                the loop's stage times, the global BA's device time and the
                 tracking thread's ms/frame while a loop or a global BA is
                 in flight;
   9. default  — exactly bench.py's configuration, SlamConfig(
                 async_mapping=True), loop closing and relocalization on,
                 on phase 6's sweep with phase 6's gates; ms/frame beside
-                phase 6's and the worker's loop-stage ms per keyframe.
+                phase 6's and the worker's loop-stage ms per keyframe;
+ 10. depth    — the depth sensors at full width (1024 keypoints, 4096-
+                landmark bundle, 1024 keyframe slots; fx = fy = 500, bf =
+                50: a 0.1 m baseline), per-frame tracking with every other
+                default (loop closing with the scale fixed, relocalization):
+                SlamConfig(sensor="STEREO") through precompile() and
+                track_stereo on 60 rendered pairs (motion 0.4), and
+                SlamConfig(sensor="RGBD") through track_rgbd on the same
+                left images with the plane's depth map: tracked from frame
+                0, >= 90% tracked, ATE without scale alignment < 0.05 on
+                the returned and the exported trajectory, median landmark
+                depth 2-4 m, no reset, two kernel launches per tracked
+                frame (one where no velocity exists yet); stage ms (the
+                feature stage as the run records it, tracking, keyframe
+                events, loop stage; ORB, stereo match and subpixel
+                refinement timed apart, each synchronised, on five of the
+                run's pairs) and peak memory. Then the stereo path
+                on a camera circling a plane (120 pairs): the same gates
+                and >= 3 keyframes, each after the first seeding depth
+                landmarks; its map saved, loaded into a fresh system in
+                localization mode and 30 frames of the circle tracked again
+                from its middle: relocalized within 3 frames, >= 90%
+                tracked after, ATE < 0.05, no keyframe or landmark added.
+                Then tests/test_localization_vo.py's RGB-D scene (the VO
+                regime engages, >= half the mid-stretch tracked, the map
+                re-acquired) and an RGB-D sweep at MapConfig(
+                max_keyframes=16) that creates more keyframes than slots:
+                no error, a slot reused, ATE < 0.05. Every search of every
+                run is held bit for bit against its plain version on the
+                run's own inputs.
 
 The kernel's `bound_ms` is the least time the card could take for the
 timed call: the larger of its bytes (every input read once, every output
@@ -105,6 +132,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 SHAPES = [(1024, 1024), (2048, 1024), (4096, 1024), (1000, 997)]
@@ -128,12 +156,25 @@ RELOC_GREY = 8             # phase 7: uniform grey frames (one chunk)
 RELOC_BACK = 40            # phase 7: resume this many frames earlier
 RELOC_CENTRE_GATE = 0.05   # phase 7: relocalized centre vs ground truth
 LOOP_FRAMES = 64           # phase 8: tests/test_loop_reloc.py's orbit
-LOOP_IMAGES = 400          # phase 8: frames of the rendered plane loop
+LOOP_IMAGES = 440          # phase 8: frames of the rendered plane loop
+LOOP_TURNS = 1.1           # phase 8: the circle, then a tenth more of it
 PHASE6 = {}                # phase 6's ms/frame, printed beside phase 9's
+DEPTH_BF = 50.0            # phase 10: fx * baseline (0.1 m)
+DEPTH_FRAMES = 60          # phase 10: rendered stereo pairs
+DEPTH_MOTION = 0.4
+DEPTH_PRECOMPILE_FRAMES = 8
+DEPTH_LOCALIZATION_FRAMES = 30  # phase 10c: frames tracked on the loaded map
+DEPTH_LOOP_FRAMES = 120    # phase 10a: the stereo circle over the plane
+SLOT_CAPACITY = 16         # phase 10d: MapConfig(max_keyframes=...)
+SLOT_LEG = 40              # phase 10d: frames of one sweep over the arc
+SLOT_FRAMES = 160          # phase 10d: four sweeps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12
 N_SM = 132
 POPC_PER_CLK_SM = 16
+
+
+START = time.perf_counter()
 
 
 def fail(msg):
@@ -1140,18 +1181,24 @@ class LoopWatch:
         real = matcher.fused_windowed_top2
 
         def wrap(name, fn):
+            # launches are read from the calling thread's own count: the
+            # wrapper's global count also takes the tracking thread's graph
+            # replays, which run beside the worker's loop stages (async)
             def run(*a, **kw):
+                me = threading.get_ident()
+
                 def record(*args, **kwargs):
-                    self.inputs.setdefault(name, (args, kwargs))
+                    if threading.get_ident() == me:
+                        self.inputs.setdefault(name, (args, kwargs))
                     return real(*args, **kwargs)
-                before = CH.fused_windowed_top2.launches
+                before = CH.thread_launches()
                 matcher.fused_windowed_top2 = record
                 try:
                     return fn(*a, **kw)
                 finally:
                     matcher.fused_windowed_top2 = real
                     self.launches[name].append(
-                        CH.fused_windowed_top2.launches - before)
+                        CH.thread_launches() - before)
             return run
         lc._search_by_sim3 = wrap("search_by_sim3", lc._search_by_sim3)
         lc._count_projected_matches = wrap("topup",
@@ -1300,18 +1347,18 @@ def run_loop_orbit(torch, CH, loops):
     return closed, ate, launches
 
 
-def plane_loop(cam, facing=False):
-    """Phase 8's scene: the camera translates once around a circle of
-    radius 1 over the textured plane, its view tilted 0.35 rad from the
-    plane's normal. With `facing`, a circle of radius 1.2 facing the plane
-    squarely: there the reprojection checks of ComputeSim3 cannot tell a
-    rotation from a translation, and a wrong Sim3 gets through (PERF.md
-    §6; run for the report only)."""
+def plane_loop(cam):
+    """Phase 8's scene: the camera translates around a circle of radius 1
+    over the textured plane, its view tilted 0.35 rad from the plane's
+    normal (facing the plane squarely, a wrong Sim3 gets through:
+    ROADMAP.md §3), and goes on over the first tenth of the circle again:
+    with async mapping a keyframe is refused while the worker is busy, and
+    on a slow host a single turn often ended before one landed where the
+    circle revisits its start (PERF.md §6)."""
     from ar_orbslam2_tpu_torch.data import synthetic
-    if facing:
-        return synthetic.render_plane_loop(cam, n_frames=LOOP_IMAGES)
     return synthetic.render_plane_loop(cam, n_frames=LOOP_IMAGES,
-                                       radius=1.0, tilt=0.35)
+                                       radius=1.0, tilt=0.35,
+                                       turns=LOOP_TURNS)
 
 
 def plane_loop_ate_without_loops(torch, CH):
@@ -1333,20 +1380,18 @@ def plane_loop_ate_without_loops(torch, CH):
     return ate_kf, ate_exp, launches
 
 
-def run_loop_images(torch, CH, async_mapping, facing=False):
+def run_loop_images(torch, CH, async_mapping):
     """The rendered plane loop at full width through precompile() and
     track_monocular_batch(chunk=8): SlamConfig() (the loop closes inline)
     or SlamConfig(async_mapping=True) (on the mapping worker, the global BA
-    on its own stream); `facing`: the fronto-parallel variant, reported
-    and not gated. Returns (kernel launches of the run, keyframe ATE,
+    on its own stream). Returns (kernel launches of the run, keyframe ATE,
     exported ATE)."""
     from ar_orbslam2_tpu_torch.core.camera import Camera
     from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
 
-    tag = "loop-facing" if facing else \
-        "loop-async" if async_mapping else "loop-sync"
+    tag = "loop-async" if async_mapping else "loop-sync"
     cam = Camera(**CAM_KW)
-    imgs, R_cw, t_cw = plane_loop(cam, facing)
+    imgs, R_cw, t_cw = plane_loop(cam)
     slam = SlamSystem(cam, SlamConfig(async_mapping=async_mapping),
                       device="cuda")
     t, lc = slam.tracking, slam.tracking.loop_closer
@@ -1403,8 +1448,6 @@ def run_loop_images(torch, CH, async_mapping, facing=False):
           wall_s=f"{wall:.2f}", kernel_launches=launches,
           **loop_numbers(lc, watch))
     print(f"[{tag}-timeline] {timeline(t.metrics)}", flush=True)
-    if facing:
-        return launches, ate_kf, ate_exp
     loop_gates(tag, slam, lc, tracked, len(imgs), am)
     for name in ("search_by_sim3", "topup"):
         if not watch.launches[name] or any(n != 1 for n in
@@ -1434,7 +1477,6 @@ def run_loop_path(torch, CH):
     if not max(ate_sync, ate_async) < ate_off:
         fail(f"loop-ate-plane: keyframe ATE with loops {ate_sync:.5f} / "
              f"{ate_async:.5f} is not below the ATE without {ate_off:.5f}")
-    launches += run_loop_images(torch, CH, False, facing=True)[0]
     # test_loop_closure_improves_ate's noisy orbit at that test's size:
     # reported, not gated (PERF.md §6: the port's odometry leaves
     # the loops nothing to correct there)
@@ -1527,11 +1569,485 @@ def run_default_config(torch, CH):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: depth sensors, localization mode, map loading, slot reuse
+# ---------------------------------------------------------------------------
+class KernelInputs:
+    """While installed, keeps the inputs of the first search of each shape
+    the matcher sends to the kernel, for the kernel-vs-plain check on the
+    run's own inputs (the launches themselves are counted as usual)."""
+
+    def __init__(self, torch, CH):
+        from ar_orbslam2_tpu_torch.matching import matcher
+        self.torch, self.CH, self.matcher = torch, CH, matcher
+        self.inputs = {}
+
+    def __enter__(self):
+        real = self.real = self.matcher.fused_windowed_top2
+
+        def record(*args, **kwargs):
+            key = "x".join(str(d) for d in args[1].shape[:-1]) \
+                + f"x{args[7].shape[-2]}"
+            self.inputs.setdefault(key, (args, kwargs))
+            return real(*args, **kwargs)
+        self.matcher.fused_windowed_top2 = record
+        return self
+
+    def __exit__(self, *exc):
+        self.matcher.fused_windowed_top2 = self.real
+
+    def check(self, tag):
+        """Kernel against plain version, bit for bit; these launches do
+        not count. Returns the shapes checked."""
+        CH = self.CH
+        counted = CH.fused_windowed_top2.launches
+        for key, (args, kwargs) in self.inputs.items():
+            got = CH.fused_windowed_top2(*args, **kwargs)
+            want = CH.fused_windowed_top2_reference(*args, **kwargs)
+            for g, w in zip(got, want):
+                if not self.torch.equal(g, w):
+                    fail(f"{tag}: the {key} search differs from its plain "
+                         "version")
+        CH.fused_windowed_top2.launches = counted
+        if not self.inputs:
+            fail(f"{tag}: no search reached the kernel")
+        return "/".join(sorted(self.inputs))
+
+
+def depth_camera():
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    return Camera(bf=DEPTH_BF, **CAM_KW)
+
+
+def plane_depth_map(cam, R, t, distance=3.0):
+    """Per-pixel depth of the rendered plane (world z = distance) seen from
+    (R, t): each pixel's ray meets the plane (the ground truth of
+    tests/test_stereo_image_e2e.py's subpixel test, for every pixel)."""
+    import numpy as np
+    v, u = np.mgrid[0:cam.height, 0:cam.width].astype(np.float64)
+    rays = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy,
+                     np.ones_like(u)], -1)
+    return ((distance + (R.T @ t)[2]) / (rays @ R)[..., 2]).astype(np.float32)
+
+
+def centres(R_cw, t_cw):
+    import numpy as np
+    return -(np.swapaxes(R_cw, -1, -2) @ t_cw[..., None])[..., 0]
+
+
+def metric_ates(slam, poses, gt_c, src):
+    """ATE without scale alignment on the returned poses and on the
+    exported trajectory; src[i] is the ground-truth index of fed frame i,
+    whose timestamp is src[i] / 30."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.eval.ate import ate_rmse
+    ok = [i for i, p in enumerate(poses) if p is not None]
+    est = np.array([-(poses[i][:3, :3].T @ poses[i][:3, 3]) for i in ok])
+    online = float(ate_rmse(est, gt_c[[src[i] for i in ok]],
+                            with_scale=False))
+    ts, _, t_wc = slam.frame_trajectory()
+    exported = float(ate_rmse(
+        t_wc, gt_c[np.round(np.asarray(ts) * 30.0).astype(int)],
+        with_scale=False))
+    return online, exported
+
+
+def stereo_stage_ms(torch, slam, left, right, picks):
+    """The stereo feature stage taken apart, on the run's own images and
+    apart from the tracked run (whose path adds no waits to time them):
+    both ORB extractions, match_stereo and refine_stereo_subpixel, each
+    closed by a device synchronisation. Medians over `picks`."""
+    from ar_orbslam2_tpu_torch.frontend import stereo
+    from ar_orbslam2_tpu_torch.ops import hamming as H
+    cam = slam.cam
+    max_disp = max(cam.bf / max(cam.fx * 0.02, 1e-6), 64.0)
+    times = {"orb": [], "match": [], "refine": []}
+
+    def up(a):
+        return torch.as_tensor(a, device=slam.device)
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[key].append((t1 - t0) * 1e3)
+        return t1
+    for i in picks:
+        t0 = time.perf_counter()
+        fl = slam._extract(left[i])
+        fr = slam._extract(right[i])
+        t0 = lap("orb", t0)
+        uv_l, valid_l = up(fl["uv"]), up(fl["valid"])
+        uvr, _ = stereo.match_stereo(
+            uv_l, H.to_signs(fl["desc_bits"], device=slam.device),
+            up(fl["octave"]), valid_l, up(fr["uv"]),
+            H.to_signs(fr["desc_bits"], device=slam.device),
+            up(fr["octave"]), up(fr["valid"]), float(max_disp))
+        t0 = lap("match", t0)
+        stereo.refine_stereo_subpixel(up(left[i]), up(right[i]), uv_l, uvr,
+                                      valid_l)
+        lap("refine", t0)
+    return {k: f"{percentile(v, 0.5):.2f}" for k, v in times.items()}
+
+
+def run_depth_sequence(torch, CH, sensor, frames, tag, plane=3.0,
+                       depth_band=(2.0, 4.0), precompile=False,
+                       keyframes=False):
+    """Phase 10a/10b: SlamConfig(sensor=...) with every other default on
+    rendered stereo pairs (RGB-D: the left images and the plane's depth
+    map); per frame: host time (synchronised) and the stage times the
+    system records. `keyframes`: gate >= 3 keyframes, each after the first
+    seeding landmarks from its depth."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
+    left, right, R_cw, t_cw = frames
+    cam = depth_camera()
+    n = len(left)
+    slam = SlamSystem(cam, SlamConfig(sensor=sensor), device="cuda")
+    warm_s = float("nan")
+    if precompile:
+        t0 = time.perf_counter()
+        slam.precompile(n_frames=DEPTH_PRECOMPILE_FRAMES)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    depth = [plane_depth_map(cam, R_cw[i], t_cw[i], distance=plane)
+             for i in range(n)] if sensor == "RGBD" else None
+    frame_ms, poses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    CH.fused_windowed_top2.launches = 0
+    with KernelInputs(torch, CH) as rec:
+        for i in range(n):
+            t0 = time.perf_counter()
+            if sensor == "STEREO":
+                T = slam.track_stereo(left[i], right[i], timestamp=i / 30.0)
+            else:
+                T = slam.track_rgbd(left[i], depth[i], timestamp=i / 30.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            poses.append(T)
+    launches = CH.fused_windowed_top2.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    shapes = rec.check(tag)
+    stages = stereo_stage_ms(torch, slam, left, right, range(1, 6)) \
+        if sensor == "STEREO" else None
+    slam.shutdown()
+    t, s = slam.tracking, slam.store
+    m = t.metrics
+    gt_c = centres(R_cw, t_cw)
+    ate, ate_exp = metric_ates(slam, poses, gt_c, list(range(n)))
+    tracked = sum(p is not None for p in poses)
+    kf_recs = [r for r in m if "new_kf" in r]
+    seeded = [r.get("n_depth_mp", 0) for r in kf_recs]
+    z = s.mp_pos[s.mp_valid][:, 2]
+    kf_stage = ("t_process_ms", "t_cull_mp_ms", "t_triangulate_ms",
+                "t_fuse_ms", "t_local_ba_ms", "t_cull_kf_ms", "t_loop_ms")
+    track_ms = [frame_ms[i] - r.get("t_features_ms", 0.0)
+                for i, r in enumerate(m) if i > 0 and "new_kf" not in r]
+    kf_ms = [sum(r.get(k, 0.0) for k in kf_stage) for r in kf_recs]
+
+    def med(key):
+        v = [r[key] for r in m[1:] if key in r]
+        return f"{percentile(v, 0.5):.2f}" if v else "none"
+    steady = frame_ms[1:]
+    lc = t.loop_closer
+    phase(tag, config=f"SlamConfig(sensor={sensor})",
+          frames=n, precompile_s=f"{warm_s:.2f}",
+          tracked=f"{tracked}/{n}", first_frame_tracked=poses[0] is not None,
+          state=t.state, keyframes=s.n_keyframes(), resets=t.n_resets,
+          depth_seeded=seeded, median_landmark_depth=f"{np.median(z):.3f}",
+          map_points=s.n_map_points(), ate_metric=f"{ate:.5f}",
+          ate_metric_exported=f"{ate_exp:.5f}",
+          ms_per_frame_median=f"{percentile(steady, 0.5):.2f}",
+          ms_per_frame_p90=f"{percentile(steady, 0.9):.2f}",
+          features_ms=med("t_features_ms"),
+          orb_ms=stages["orb"] if stages else med("t_features_ms"),
+          stereo_match_ms=stages["match"] if stages else "none",
+          stereo_refine_ms=stages["refine"] if stages else "none",
+          track_ms=(f"{percentile(track_ms, 0.5):.2f}" if track_ms
+                    else "none"),
+          keyframe_event_ms="/".join(f"{x:.1f}" for x in kf_ms) or "none",
+          loop_stage_ms="/".join(f"{r.get('t_loop_ms', 0.0):.1f}"
+                                 for r in kf_recs) or "none",
+          loops=len(lc.loops), fix_scale=lc.cfg.fix_scale,
+          kernel_launches=launches,
+          launches_per_tracked_frame=f"{launches / max(tracked, 1):.2f}",
+          kernel_checked=shapes, peak_device_mib=f"{peak_mib:.1f}",
+          wall_s=f"{sum(frame_ms) / 1e3:.2f}")
+    if poses[0] is None:
+        fail(f"{tag}: frame 0 not tracked")
+    if tracked < TRACKED_SHARE_GATE * n or t.state != "OK":
+        fail(f"{tag}: {tracked}/{n} tracked, state {t.state}")
+    for name, value in (("returned", ate), ("exported", ate_exp)):
+        if not value < ATE_GATE:
+            fail(f"{tag}: metric ATE ({name}) {value:.4f} >= {ATE_GATE}")
+    lo, hi = depth_band
+    if not lo < float(np.median(z)) < hi:
+        fail(f"{tag}: median landmark depth {np.median(z):.3f} outside "
+             f"({lo}, {hi})")
+    if keyframes and s.n_keyframes() < MIN_KEYFRAMES:
+        fail(f"{tag}: {s.n_keyframes()} keyframes < {MIN_KEYFRAMES}")
+    if keyframes and (not seeded or min(seeded) <= 0):
+        fail(f"{tag}: keyframes without depth-seeded landmarks {seeded}")
+    if t.n_resets != 0:
+        fail(f"{tag}: {t.n_resets} resets")
+    # each tracked frame after the first: one local-map search, and one
+    # more when it had a velocity for the motion-model search (the frame
+    # after the map's first has none)
+    need = sum(2 if "motion_matches" in r else 1
+               for r in m[1:] if r["ok"])
+    if launches < need:
+        fail(f"{tag}: {launches} kernel launches, {need} expected for "
+             f"{tracked} tracked frames")
+    return slam, launches
+
+
+def run_localization(torch, CH, mapped, frames):
+    """Phase 10c: the stereo loop's map saved, loaded into a fresh
+    SlamSystem(sensor="STEREO") in localization mode, and the sequence
+    tracked again from its middle."""
+    import tempfile
+
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
+    left, right, R_cw, t_cw = frames
+    n = len(left)
+    start = n // 2
+    stop = start + DEPTH_LOCALIZATION_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stereo_map.npz")
+        mapped.save_map(path)
+        slam = SlamSystem(depth_camera(), SlamConfig(sensor="STEREO"),
+                          device="cuda")
+        t0 = time.perf_counter()
+        slam.load_map(path)
+        load_s = time.perf_counter() - t0
+    s, t = slam.store, slam.tracking
+    n_kf, n_mp, created = s.n_keyframes(), s.n_map_points(), s.n_kf_created
+    db_rows = int((slam.kfdb.has_bow & s.kf_valid).sum())
+    poses, frame_ms = [], []
+    CH.fused_windowed_top2.launches = 0
+    with KernelInputs(torch, CH) as rec:
+        for i in range(start, stop):
+            t1 = time.perf_counter()
+            poses.append(slam.track_stereo(left[i], right[i],
+                                           timestamp=i / 30.0))
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("depth-localization")
+    slam.shutdown()
+    ok = [p is not None for p in poses]
+    first = ok.index(True) if any(ok) else None
+    after = ok[first:] if first is not None else []
+    share = sum(after) / max(len(after), 1)
+    src = list(range(start, stop))
+    ate, ate_exp = metric_ates(slam, poses, centres(R_cw, t_cw), src) \
+        if any(ok) else (float("nan"), float("nan"))
+    rel = t.relocalizer
+    phase("depth-localization", loaded_keyframes=n_kf,
+          loaded_map_points=n_mp, database_rows=db_rows,
+          load_s=f"{load_s:.3f}", resumed_at=start, frames=stop - start,
+          first_ok=first, tracked_after=f"{sum(after)}/{len(after)}",
+          relocalizations=rel.n_success,
+          ate_metric=f"{ate:.5f}", ate_metric_exported=f"{ate_exp:.5f}",
+          keyframes_added=s.n_kf_created - created,
+          map_points_after=s.n_map_points(),
+          ms_per_frame_median=f"{percentile(frame_ms[1:], 0.5):.2f}",
+          kernel_launches=launches, kernel_checked=shapes)
+    if db_rows != n_kf:
+        fail(f"depth-localization: {db_rows} database rows for {n_kf} "
+             "loaded keyframes")
+    if first is None or first >= 3:
+        fail(f"depth-localization: not relocalized within 3 frames "
+             f"({first})")
+    if share < TRACKED_SHARE_GATE:
+        fail(f"depth-localization: tracked share {share:.3f}")
+    for name, value in (("returned", ate), ("exported", ate_exp)):
+        if not value < ATE_GATE:
+            fail(f"depth-localization: metric ATE ({name}) {value:.4f}")
+    if s.n_kf_created != created or s.n_keyframes() != n_kf:
+        fail(f"depth-localization: keyframes {n_kf} -> {s.n_keyframes()}, "
+             f"created {s.n_kf_created - created}")
+    if s.n_map_points() != n_mp:
+        fail(f"depth-localization: landmarks {n_mp} -> {s.n_map_points()}")
+    return launches
+
+
+def feature_camera(bf):
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    return Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=bf)
+
+
+def feature_config(**map_kw):
+    """tests/test_localization_vo.py's and test_slam_stereo_e2e.py's size:
+    512 keypoints, a 2048-landmark bundle, keyframes at least every 5
+    frames; relocalization on, loop closing off."""
+    from ar_orbslam2_tpu_torch.mapping.local_mapping import LocalMapperConfig
+    from ar_orbslam2_tpu_torch.mapstore.map import MapConfig
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig
+    from ar_orbslam2_tpu_torch.system.tracking import TrackingConfig
+    return SlamConfig(
+        sensor="RGBD",
+        map=MapConfig(**dict(dict(max_keyframes=64, max_map_points=20_000,
+                                  max_kp=512), **map_kw)),
+        tracking=TrackingConfig(max_kp=512, n_local_mp=2048,
+                                max_frames_between_kf=5),
+        mapper=LocalMapperConfig(ba_max_points=2048,
+                                 n_triangulation_neighbors=5,
+                                 n_fuse_neighbors=5),
+        enable_loop_closing=False, enable_relocalization=True)
+
+
+def track_features(slam, scene, cam, i):
+    from ar_orbslam2_tpu_torch.data import synthetic
+    obs = synthetic.observe_frame(scene, i, cam, max_kp=512, noise_px=0.3,
+                                  bit_flip=0.02)
+    return slam.track_rgbd(features=dict(uv=obs["uv"], desc=obs["desc"],
+                                         octave=obs["octave"],
+                                         valid=obs["valid"]),
+                           kp_depth=obs["depth"],
+                           timestamp=scene.timestamps[i])
+
+
+def run_vo_and_slots(torch, CH):
+    """Phase 10d: localization mode's VO regime on
+    tests/test_localization_vo.py's out-and-back scene, then keyframe
+    slots reused past capacity on the RGB-D orbit swept back and forth."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.data import synthetic
+    from ar_orbslam2_tpu_torch.eval.ate import ate_rmse
+    from ar_orbslam2_tpu_torch.system.slam import SlamSystem
+
+    # the VO regime
+    base = synthetic.make_scene(
+        n_landmarks=4000, n_frames=36, seed=5, trajectory="forward",
+        box=((-4.0, -3.0, 0.0), (4.0, 3.0, 26.0)), speed=0.35)
+    back = np.arange(14, -1, -1)
+    scene = synthetic.SyntheticScene(
+        base.landmarks, base.desc_bits,
+        np.concatenate([base.R_cw, base.R_cw[back]]),
+        np.concatenate([base.t_cw, base.t_cw[back]]), np.arange(51) / 30.0)
+    cam = feature_camera(50.0)
+    slam = SlamSystem(cam, feature_config(), device="cuda")
+    n_map, history = 16, []
+    CH.fused_windowed_top2.launches = 0
+    with KernelInputs(torch, CH) as rec:
+        for i in range(scene.n_frames):
+            if i == n_map:
+                slam.activate_localization_mode()
+                n_kf = slam.store.n_keyframes()
+                resets = slam.tracking.n_resets
+            T = track_features(slam, scene, cam, i)
+            history.append((T is not None, slam.tracking.vo))
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("depth-vo")
+    mid = [ok for i, (ok, _) in enumerate(history)
+           if n_map + 8 <= i < n_map + 20]
+    reacquired = any(ok and not vo for ok, vo in history[-6:])
+    trace = "".join("V" if vo else ("o" if ok else "x")
+                    for ok, vo in history)
+    phase("depth-vo", frames=scene.n_frames, mapped_frames=n_map,
+          trace=trace, vo_frames=sum(vo for _, vo in history),
+          mid_tracked=f"{sum(mid)}/{len(mid)}", reacquired=reacquired,
+          keyframes_added=slam.store.n_keyframes() - n_kf,
+          resets_in_localization=slam.tracking.n_resets - resets,
+          kernel_launches=launches, kernel_checked=shapes)
+    if not any(vo for _, vo in history):
+        fail("depth-vo: the VO regime never engaged")
+    if sum(mid) < 0.5 * len(mid):
+        fail(f"depth-vo: {sum(mid)}/{len(mid)} mid-stretch frames tracked")
+    if not reacquired:
+        fail(f"depth-vo: map not re-acquired on the return ({trace})")
+    if slam.store.n_keyframes() != n_kf or slam.tracking.n_resets != resets:
+        fail("depth-vo: localization mode changed the map")
+
+    # keyframe slots reused past capacity
+    leg = SLOT_LEG
+    base = synthetic.make_scene(n_landmarks=1500, n_frames=leg, seed=5,
+                                trajectory="orbit", arc=3.0)
+    sweep = np.concatenate([np.arange(leg), np.arange(leg - 2, 0, -1)])
+    idx = np.resize(sweep, SLOT_FRAMES)
+    scene = synthetic.SyntheticScene(base.landmarks, base.desc_bits,
+                                     base.R_cw[idx], base.t_cw[idx],
+                                     np.arange(len(idx)) / 30.0)
+    cam = feature_camera(40.0)
+    slam = SlamSystem(cam, feature_config(max_keyframes=SLOT_CAPACITY),
+                      device="cuda")
+    CH.fused_windowed_top2.launches = 0
+    error = None
+    poses = []
+    with KernelInputs(torch, CH) as rec:
+        try:
+            for i in range(scene.n_frames):
+                poses.append(track_features(slam, scene, cam, i))
+        except RuntimeError as e:
+            error = e
+    n_slots = CH.fused_windowed_top2.launches
+    shapes = rec.check("depth-slots")
+    s = slam.store
+    seeded = [r.get("n_depth_mp", 0) for r in slam.tracking.metrics
+              if "new_kf" in r]
+    ok = [i for i, p in enumerate(poses) if p is not None]
+    gt = centres(scene.R_cw, scene.t_cw)
+    est = np.array([-(poses[i][:3, :3].T @ poses[i][:3, 3]) for i in ok])
+    ate = float(ate_rmse(est, gt[ok], with_scale=False)) if ok \
+        else float("nan")
+    ts, _, t_wc = slam.frame_trajectory()
+    ate_exp = float(ate_rmse(t_wc, gt[np.round(ts * 30.0).astype(int)],
+                             with_scale=False)) if len(ts) else float("nan")
+    phase("depth-slots", capacity=SLOT_CAPACITY, frames=scene.n_frames,
+          processed=len(poses), error=repr(error),
+          keyframes_created=s.n_kf_created, slots_reused=s.n_kf_reused,
+          live_keyframes=s.n_keyframes(), tracked=f"{len(ok)}/{len(poses)}",
+          depth_seeded_min=min(seeded, default=0),
+          ate_metric=f"{ate:.5f}", ate_metric_exported=f"{ate_exp:.5f}",
+          kernel_launches=n_slots, kernel_checked=shapes)
+    if error is not None:
+        fail(f"depth-slots: {error!r}")
+    if s.n_kf_reused < 1 or s.n_kf_created <= SLOT_CAPACITY:
+        fail(f"depth-slots: {s.n_kf_created} keyframes created, "
+             f"{s.n_kf_reused} slots reused")
+    if not seeded or min(seeded) <= 0:
+        fail("depth-slots: keyframes without depth-seeded landmarks")
+    for name, value in (("returned", ate), ("exported", ate_exp)):
+        if not value < ATE_GATE:
+            fail(f"depth-slots: metric ATE ({name}) {value:.4f}")
+    return launches + n_slots
+
+
+def run_depth_path(torch, CH):
+    """Phase 10: stereo and RGB-D at full width, localization against a
+    loaded map, the VO regime and keyframe slot reuse."""
+    from ar_orbslam2_tpu_torch.data import synthetic
+    cam = depth_camera()
+    frames = synthetic.render_stereo_plane_sequence(
+        cam, n_frames=DEPTH_FRAMES, seed=0, motion=DEPTH_MOTION)
+    launches = run_depth_sequence(torch, CH, "STEREO", frames,
+                                  "depth-stereo", precompile=True)[1]
+    launches += run_depth_sequence(torch, CH, "RGBD", frames,
+                                   "depth-rgbd")[1]
+    # the sway above keeps most of the first keyframe's landmarks in view,
+    # so the map keeps one keyframe (PERF.md §6); the keyframe path
+    # runs on a camera that travels: a circle over a plane 1.5 m away
+    loop = synthetic.render_stereo_plane_loop(
+        cam, n_frames=DEPTH_LOOP_FRAMES, radius=1.0, tilt=0.35)
+    mapped, n = run_depth_sequence(torch, CH, "STEREO", loop,
+                                   "depth-stereo-loop", plane=1.5,
+                                   depth_band=(1.2, 2.0), keyframes=True)
+    launches += n
+    launches += run_localization(torch, CH, mapped, loop)
+    launches += run_vo_and_slots(torch, CH)
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases of 3-9 to run alone, for "
+                    help="comma-separated phases of 3-10 to run alone, for "
                          "development (the result lines are then withheld)")
     opts = ap.parse_args()
     only = {int(x) for x in opts.phases.split(",") if x}
@@ -1572,31 +2088,36 @@ def main():
     def wanted(n):
         return not only or n in only
 
+    seconds = {}
+
+    def timed(n, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[n] = round(time.perf_counter() - t0, 1)
+        return out
+
     # 3. kernel vs plain version
-    profiled, rec = check_kernel(torch, CH) if wanted(3) else ({}, {})
+    profiled, rec = timed(3, lambda: check_kernel(torch, CH)) if wanted(3) \
+        else ({}, {})
 
     # 4. per-frame main path
-    launches = run_main_path(torch, CH) if wanted(4) else 0
+    launches = timed(4, lambda: run_main_path(torch, CH)) if wanted(4) \
+        else 0
 
     # 5. graph replay vs eager
     if wanted(5):
-        run_graph_check(torch, CH)
+        timed(5, lambda: run_graph_check(torch, CH))
 
-    # 6. fused, chunked, pipelined main path
-    if wanted(6):
-        launches += run_fused_path(torch, CH)
-
-    # 7. loss and relocalization on the fused, pipelined path
-    if wanted(7):
-        launches += run_reloc_path(torch, CH)
-
-    # 8. loop closing, inline and on the mapping worker
-    if wanted(8):
-        launches += run_loop_path(torch, CH)
-
-    # 9. the configuration bench.py builds
-    if wanted(9):
-        launches += run_default_config(torch, CH)
+    # 6-10: the fused, chunked, pipelined main path; loss and
+    # relocalization on it; loop closing, inline and on the mapping worker;
+    # the configuration bench.py builds; the depth sensors
+    for n, run in ((6, run_fused_path), (7, run_reloc_path),
+                   (8, run_loop_path), (9, run_default_config),
+                   (10, run_depth_path)):
+        if wanted(n):
+            launches += timed(n, lambda: run(torch, CH))
+    phase("timing", **{f"phase{n}_s": v for n, v in seconds.items()},
+          total_s=round(time.perf_counter() - START, 1))
     rec["launches"] = launches
     torch.cuda.synchronize()
     if profiled:                # the profiler last: see profile_searches

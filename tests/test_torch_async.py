@@ -14,6 +14,7 @@ CPU budget; the seed is fixed.
 """
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -47,8 +48,10 @@ def _few_torch_threads():
 # ---------------------------------------------------------------------------
 class _ScriptedMapper:
     """Stands in for LocalMapper: records what it is asked to process,
-    blocks on a gate, and fails on keyframe 13."""
+    blocks on a gate, and fails on keyframe 13. Its store says each slot
+    holds the keyframe created first in it (creation number = id)."""
     device = "cpu"
+    store = types.SimpleNamespace(kf_seq=np.arange(64))
 
     def __init__(self):
         self.seen = []
@@ -67,11 +70,19 @@ def _make(kind):
     return m, (AsyncMapper(m) if kind == "port" else JAsyncMapper(m))
 
 
+def _submit(am, kind, kf):
+    """The port's worker takes the keyframe's creation number beside it."""
+    if kind == "port":
+        am.submit(kf, am.mapper.store.kf_seq[kf])
+    else:
+        am.submit(kf)
+
+
 @pytest.mark.parametrize("kind", ["port", "jax"])
 def test_async_mapper_processes_in_order(kind):
     m, am = _make(kind)
     m.gate.clear()                      # hold the worker inside a step
-    am.submit(3)
+    _submit(am, kind, 3)
     am.submit_task(lambda: 4)           # deferred insert -> kf id
     am.submit_task(lambda: None)        # dropped candidate
     assert am.busy()
@@ -89,13 +100,13 @@ def test_async_mapper_processes_in_order(kind):
 @pytest.mark.parametrize("kind", ["port", "jax"])
 def test_async_mapper_surfaces_errors(kind):
     m, am = _make(kind)
-    am.submit(13)
+    _submit(am, kind, 13)
     with pytest.raises(RuntimeError, match="async mapper died") as info:
         am.join()
     assert isinstance(info.value.__cause__, ValueError)
     assert isinstance(am.error, ValueError) and not am.busy()
     with pytest.raises(RuntimeError, match="async mapper died"):
-        am.submit(5)
+        _submit(am, kind, 5)
     with pytest.raises(RuntimeError, match="async mapper died"):
         am.submit_task(lambda: 6)
     assert m.seen == []
@@ -266,6 +277,7 @@ def test_dropped_deferred_insert_rolls_the_time_trigger_back(async_run):
     t.last_kf_frame_id = 999                 # the decision's stamp
     kf = t._deferred_kf_insert(
         snaps, 0, 33.3, 999, fe.bundle_ids,
-        (fe.anchor_kf, fe.anchor_R, fe.anchor_t), kf_fid_before=before)
+        (fe.anchor_kf, fe.anchor_R, fe.anchor_t, fe.anchor_seq),
+        kf_fid_before=before)
     assert kf is None and slam.store.next_kf == n_kf
     assert t.last_kf_frame_id == before

@@ -21,6 +21,7 @@ winner is not compared here (tests/test_torch_sim3.py holds it), the
 refinement from the JAX winner is.
 """
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -352,8 +353,17 @@ def test_default_configs_construct_with_the_loop_closer():
         if cfg.async_mapping:
             assert t.async_mapper.loop_closer is t.loop_closer
         slam.shutdown()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SlamConfig(sensor="STEREO")
+    # the depth sensors construct with the scale of a loop fixed; only an
+    # unknown sensor raises
+    for sensor in ("STEREO", "RGBD"):
+        slam = SlamSystem(CAM._replace(bf=50.0), SlamConfig(sensor=sensor),
+                          device="cpu")
+        assert slam.tracking.loop_closer.cfg.fix_scale
+        assert slam.tracking.relocalizer is not None
+        assert slam.cfg.tracking.depth_threshold_m == 40.0 * 50.0 / 500.0
+        slam.shutdown()
+    with pytest.raises(ValueError, match="unknown sensor"):
+        SlamConfig(sensor="MONO")
 
 
 def test_worker_hands_keyframes_to_the_loop_closer():
@@ -364,6 +374,7 @@ def test_worker_hands_keyframes_to_the_loop_closer():
 
     class Mapper:
         device = torch.device("cpu")
+        store = types.SimpleNamespace(kf_seq=np.arange(8))
 
         def process_keyframe(self, kf):
             with lock:
@@ -379,7 +390,7 @@ def test_worker_hands_keyframes_to_the_loop_closer():
 
     am = AsyncMapper(Mapper(), loop_closer=Closer(), relocalizer=Reloc())
     for kf in (3, 4):
-        am.submit(kf)
+        am.submit(kf, Mapper.store.kf_seq[kf])
     am.submit_task(lambda: 5)
     am.join()
     assert calls == [("map", 3), ("loop", 3), ("map", 4), ("loop", 4),

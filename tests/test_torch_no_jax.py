@@ -29,7 +29,7 @@ for new in ("loop.place_recognition", "estimation.pnp",
             "estimation.relocalization", "loop.loop_closing",
             "loop.vocab_train", "estimation.sim3_solver",
             "estimation.pose_graph", "mapping.global_ba",
-            "mapping.background_gba"):
+            "mapping.background_gba", "frontend.stereo"):
     assert "ar_orbslam2_tpu_torch." + new in names, new
 import chip_smoke
 bad = [m for m in sys.modules

@@ -152,8 +152,11 @@ def test_unported_options_raise():
     for opt in ("use_fused_tracking", "async_mapping",
                 "enable_relocalization", "enable_loop_closing"):  # ported
         assert getattr(SlamConfig(**dict(SLICE, **{opt: True})), opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamConfig(sensor="STEREO", **SLICE)
+    # the depth sensors are ported too; only an unknown sensor raises
+    for sensor in ("STEREO", "RGBD"):
+        assert SlamConfig(sensor=sensor, **SLICE).sensor == sensor
+    with pytest.raises(ValueError, match="unknown sensor"):
+        SlamConfig(sensor="LIDAR", **SLICE)
     # the JAX defaults are all ported for the monocular sensor
     assert SlamConfig().enable_loop_closing
     assert SlamConfig(async_mapping=True).async_mapping
