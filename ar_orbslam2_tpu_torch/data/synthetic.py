@@ -193,6 +193,26 @@ def _make_texture(size=2048, seed=0):
     return img
 
 
+def _make_blocks(plane_extent, distance, s, seed, n=36):
+    """Flat-topped blocks standing on the plane: `n` squares 0.3-0.7 m
+    wide whose textured tops lie 0.15-0.45 m nearer the camera than the
+    plane, a quarter of its area; texel size `s` as the plane's. Returns
+    [(top texture, texture pixel -> world (X, Y, 1), top's z)], farthest
+    first."""
+    rng = np.random.default_rng(seed + 1)
+    tex = _make_texture(1024, seed + 1)
+    out = []
+    for _ in range(n):
+        side = rng.uniform(0.3, 0.7)
+        x0, y0 = rng.uniform(-plane_extent / 2, plane_extent / 2 - side, 2)
+        px = int(round(side / s))
+        r, c = rng.integers(0, tex.shape[0] - px, 2)
+        A_b = np.array([[s, 0, x0], [0, s, y0], [0, 0, 1.0]])
+        out.append((tex[r:r + px, c:c + px].copy(), A_b,
+                    distance - rng.uniform(0.15, 0.45)))
+    return sorted(out, key=lambda b: -b[2])
+
+
 def render_plane_sequence(cam, n_frames=40, seed=0, tex_size=2048,
                           plane_extent=6.0, distance=3.0, motion=0.5):
     """Render a camera moving in front of a textured plane at z=`distance`.
@@ -227,16 +247,27 @@ def render_plane_sequence(cam, n_frames=40, seed=0, tex_size=2048,
 
 def render_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
                       plane_extent=6.0, distance=1.5, radius=1.2,
-                      turns=0.999, tilt=0.0):
+                      turns=0.999, tilt=0.0, outward=False,
+                      relief=False, angles=None):
     """Render a camera translating once around a circle parallel to a
     textured plane at z=`distance`: the end of the sequence revisits its
     start (a loop), while views half a turn apart share no texture (2 *
     radius exceeds the view's footprint). The camera keeps one viewing
     direction, tilted by `tilt` radians about the image's vertical axis
-    from the plane's normal (0: facing it). Same return values as
-    render_plane_sequence."""
-    out = _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
-                             distance, radius, turns, tilt, baseline=None)
+    from the plane's normal (0: facing it); with `outward` the view tilts
+    away from the circle's centre instead, turning with the camera, so
+    that its footprint lies outside the circle and views more than about
+    60 degrees apart share nothing (radius 1.0, tilt 0.35). With `relief`
+    flat-topped blocks stand on the plane (_make_blocks), so the scene is
+    not one plane. `angles` (radians, e.g. loop_angles()) places the
+    camera on the circle frame by frame in place of `n_frames` evenly
+    spaced over `turns`. Same return values as render_plane_sequence."""
+    if angles is None:
+        angles = 2 * np.pi * turns * np.arange(n_frames) / max(
+            n_frames - 1, 1)
+    out = _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
+                             distance, radius, tilt, baseline=None,
+                             outward=outward, relief=relief)
     return out[0], out[2], out[3]
 
 
@@ -247,48 +278,87 @@ def render_stereo_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
     camera displaced by cam.bf / cam.fx along the camera x axis (as in
     render_stereo_plane_sequence). Returns (left, right, R_cw, t_cw)."""
     baseline = cam.bf / cam.fx if cam.bf > 0 else 0.1
-    return _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
-                              distance, radius, turns, tilt, baseline)
+    angles = 2 * np.pi * turns * np.arange(n_frames) / max(n_frames - 1, 1)
+    return _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
+                              distance, radius, tilt, baseline)
 
 
-def _render_plane_loop(cam, n_frames, seed, tex_size, plane_extent,
-                       distance, radius, turns, tilt, baseline):
+def loop_angles(turns=1.1, step=0.9, slow=(260.0, 340.0), factor=3.0,
+                ramp=15.0):
+    """Angles (radians) for render_plane_loop(angles=...): `turns` turns
+    at `step` degrees a frame, `factor` times slower over the arc `slow`
+    (degrees), with raised-cosine ramps `ramp` degrees wide at its ends."""
+    out, a = [], 0.0
+    while a <= 360.0 * turns:
+        out.append(a)
+        if slow[0] <= a <= slow[1]:
+            w = 1.0
+        elif slow[0] - ramp < a < slow[0]:
+            w = 0.5 - 0.5 * np.cos(np.pi * (a - slow[0] + ramp) / ramp)
+        elif slow[1] < a < slow[1] + ramp:
+            w = 0.5 + 0.5 * np.cos(np.pi * (a - slow[1]) / ramp)
+        else:
+            w = 0.0
+        a += step / (1.0 + (factor - 1.0) * w)
+    return np.radians(out)
+
+
+def _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
+                       distance, radius, tilt, baseline, outward=False,
+                       relief=False):
     rng = np.random.default_rng(seed)
     tex = _make_texture(tex_size, seed)
     s = plane_extent / tex_size
     A = np.array([[s, 0, -plane_extent / 2],
                   [0, s, -plane_extent / 2],
                   [0, 0, 1.0]])
+    blocks = _make_blocks(plane_extent, distance, s, seed) if relief else ()
     K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
     lefts, rights, Rs, ts = [], [], [], []
-    for i in range(n_frames):
-        a = 2 * np.pi * turns * i / max(n_frames - 1, 1)
+    for a in angles:
         eye = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
-        R, t = _look_at(eye, eye + np.array([distance * np.tan(tilt), 0.0,
-                                             distance]))
+        lean = (np.cos(a), np.sin(a)) if outward else (1.0, 0.0)
+        R, t = _look_at(eye, eye + np.array([
+            distance * np.tan(tilt) * lean[0],
+            distance * np.tan(tilt) * lean[1], distance]))
         lefts.append(_render_plane_view(tex, A, K, cam, R, t, distance,
-                                        rng))
+                                        rng, blocks))
         if baseline is not None:
             t_r = t - np.array([baseline, 0.0, 0.0], t.dtype)
             rights.append(_render_plane_view(tex, A, K, cam, R, t_r,
-                                             distance, rng))
+                                             distance, rng, blocks))
         Rs.append(R)
         ts.append(t)
     return (np.stack(lefts), np.stack(rights) if rights else None,
             np.stack(Rs), np.stack(ts))
 
 
-def _render_plane_view(tex, A, K, cam, R, t, distance, rng):
-    """One view of the textured plane (exact homography warp)."""
+def _render_plane_view(tex, A, K, cam, R, t, distance, rng, blocks=()):
+    """One view of the textured plane (exact homography warp), with the
+    tops of `blocks` (_make_blocks) drawn over it, farthest first."""
     import cv2
-    # world plane point (X, Y, distance): u ~ K (R @ [X,Y,dist] + t)
-    #   = K ([r1 r2 (dist*r3 + t)]) @ [X Y 1]^T
-    M = np.stack([R[:, 0], R[:, 1], distance * R[:, 2] + t], axis=1)
-    H = K @ M @ A
-    img = cv2.warpPerspective(
-        tex, H.astype(np.float64), (cam.width, cam.height),
-        flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT,
-        borderValue=0)
+
+    def warp(tex, A, z, flags=cv2.INTER_LINEAR):
+        # world plane point (X, Y, z): u ~ K (R @ [X,Y,z] + t)
+        #   = K ([r1 r2 (z*r3 + t)]) @ [X Y 1]^T
+        M = np.stack([R[:, 0], R[:, 1], z * R[:, 2] + t], axis=1)
+        return cv2.warpPerspective(
+            tex, (K @ M @ A).astype(np.float64), (cam.width, cam.height),
+            flags=flags, borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+    img = warp(tex, A, distance)
+    for top, A_b, z in blocks:
+        h, w = top.shape
+        corners = A_b @ np.array([[0, w, w, 0], [0, 0, h, h], [1, 1, 1, 1.0]])
+        p = K @ (R @ np.vstack([corners[:2], np.full(4, z)])
+                 + t[:, None])
+        if (p[2] <= 0.1).any():
+            continue                       # behind the camera: not in view
+        u, v = p[0] / p[2], p[1] / p[2]
+        if (u.max() < 0 or u.min() > cam.width or v.max() < 0
+                or v.min() > cam.height):
+            continue
+        mask = warp(np.ones_like(top), A_b, z, cv2.INTER_NEAREST) > 0
+        img[mask] = warp(top, A_b, z)[mask]
     img = cv2.GaussianBlur(img, (3, 3), 0.6)
     noise = rng.normal(0, 1.5, img.shape)
     return np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)

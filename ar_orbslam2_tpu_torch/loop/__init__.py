@@ -1,1 +1,1 @@
-"""Place recognition (loop closing itself is not ported yet)."""
+"""Place recognition, loop closing and the loop-recall study."""

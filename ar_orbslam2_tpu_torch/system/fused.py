@@ -688,10 +688,12 @@ class FusedFrontend:
     def _read(self, tensors: dict, done=None) -> dict:
         """One batched readback of a dict of device tensors. ``done``: the
         event after which they are complete, when they were written on
-        another stream than the caller's."""
+        another stream than the caller's. The host arrays are copies on the
+        CPU too, where ``.cpu()`` would alias the state buffers that the
+        next step or rebuild overwrites."""
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
-        return {k: v.cpu().numpy() for k, v in tensors.items()}
+        return {k: v.to("cpu", copy=True).numpy() for k, v in tensors.items()}
 
     def _frame_from(self, got, timestamp, frame_id):
         from .frame import Frame

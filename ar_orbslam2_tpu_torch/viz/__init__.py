@@ -1,0 +1,3 @@
+"""Headless drawers: the frame overlay and the top-down map."""
+from .frame_drawer import draw_frame  # noqa: F401
+from .map_drawer import draw_map  # noqa: F401

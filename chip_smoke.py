@@ -112,6 +112,31 @@ non-zero before the final line):
                 no error, a slot reused, ATE < 0.05. Every search of every
                 run is held bit for bit against its plain version on the
                 run's own inputs.
+ 11. apps     — the user's entry points, as a user calls them, on a
+                dataset directory the phase writes under a temporary
+                directory: phase 6's sweep (64 frames) as TUM rgb/ PNGs with
+                rgb.txt, groundtruth.txt and a FileStorage settings file
+                (fx = fy = 500, cx = 320, cy = 240, Camera.fps 30,
+                ORBextractor.nFeatures 1000: 1024 keypoints). 11a: run_eval
+                tum with --gate-ate 0.05 (precompile(), chunks of 8): exit
+                0, both trajectory files, no graph captured after warm-up,
+                >= 2 kernel launches per fused frame; median and mean
+                ms/frame. 11b: run_ar, 40 frames, a cube added at frame 30:
+                one cube, its plane >= 20 inliers and its normal (R_cw n)
+                within 10 degrees of the rendered plane's in the same
+                ground-truth camera, 40 overlays of 502x640x3, the tracked
+                dots of every 4th fused frame keypoints of that frame's
+                image (1e-3 px); ms/frame, detect_plane ms and the fused
+                frame's readback ms. 11c: run_multi --synthetic 2 --frames
+                40: > 60 % tracked and >= 2 keyframes per sequence, each
+                system's frame step captured once, two stores; aggregate
+                fps. 11d: the loop-recall study at run_study's defaults on
+                the card and on the CPU: ranks equal but for at most one
+                query. 11e: run_eval tum-rgbd on 24 frames with the exact
+                depth as 16-bit PNGs at DepthMapFactor 5000: exit 0 under
+                the 0.05 m gate without scale alignment, per frame. Every
+                search of every leg is held bit for bit against its plain
+                version.
 
 The kernel's `bound_ms` is the least time the card could take for the
 timed call: the larger of its bytes (every input read once, every output
@@ -168,6 +193,17 @@ DEPTH_LOOP_FRAMES = 120    # phase 10a: the stereo circle over the plane
 SLOT_CAPACITY = 16         # phase 10d: MapConfig(max_keyframes=...)
 SLOT_LEG = 40              # phase 10d: frames of one sweep over the arc
 SLOT_FRAMES = 160          # phase 10d: four sweeps
+APPS_FRAMES = 64           # phase 11a: run_eval tum on phase 6's sweep
+APPS_AR_FRAMES = 40        # phase 11b: run_ar on the same directory
+APPS_CUBE_AT = 30          # phase 11b: the frame that presses "Add Cube"
+APPS_PLANE_INLIERS = 20    # phase 11b: detect_plane's min_inliers
+APPS_NORMAL_GATE_DEG = 10.0
+APPS_DOT_TOL_PX = 1e-3     # phase 11b: a dot is a keypoint of its image
+APPS_DOT_EVERY = 4         # phase 11b: fused frames whose dots are checked
+APPS_MULTI_FRAMES = 40     # phase 11c: tests/test_run_multi.py's size
+APPS_MULTI_TRACKED = 0.6   # phase 11c: tests/test_run_multi.py's gate
+APPS_RGBD_FRAMES = 24      # phase 11e
+APPS_DEPTH_FACTOR = 5000.0  # TUM's DepthMapFactor: 16-bit PNG per meter
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12
 N_SM = 132
@@ -1171,7 +1207,7 @@ class LoopWatch:
     host intervals during which a loop stage or a global BA was in
     flight."""
 
-    def __init__(self, torch, CH, lc):
+    def __init__(self, torch, CH, lc, R_cw):
         from ar_orbslam2_tpu_torch.matching import matcher
         self.torch, self.CH, self.lc = torch, CH, lc
         self.launches = {"search_by_sim3": [], "topup": []}
@@ -1227,14 +1263,19 @@ class LoopWatch:
         def checked_correct(kf, cand, sim3, *a):
             # the accepted S12 against the map's own relative pose of the
             # two keyframes just before the correction (degrees)
+            # and against the two frames' true relative pose
             import numpy as np
             s = lc.store
-            R_map = s.kf_R[kf] @ s.kf_R[cand].T
-            c = (np.trace(sim3["R12"] @ R_map.T) - 1.0) / 2.0
-            self.r12_vs_map_deg.append(
-                float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))))
+            f1, f2 = int(s.kf_frame_id[kf]), int(s.kf_frame_id[cand])
+            for R_ref, out in ((s.kf_R[kf] @ s.kf_R[cand].T,
+                                self.r12_vs_map_deg),
+                               (R_cw[f1] @ R_cw[f2].T,
+                                self.r12_vs_truth_deg)):
+                c = (np.trace(sim3["R12"] @ R_ref.T) - 1.0) / 2.0
+                out.append(float(np.degrees(np.arccos(np.clip(c, -1.0,
+                                                              1.0)))))
             return correct(kf, cand, sim3, *a)
-        self.r12_vs_map_deg = []
+        self.r12_vs_map_deg, self.r12_vs_truth_deg = [], []
         lc.insert_keyframe = timed_insert
         lc.gba.launch, lc.gba.poll = timed_launch, timed_poll
         lc._correct_loop = checked_correct
@@ -1303,6 +1344,8 @@ def loop_numbers(lc, watch):
                attempts=len(lc.stats_log),
                r12_vs_map_deg="/".join(f"{d:.2f}" for d in
                                        watch.r12_vs_map_deg) or "none",
+               r12_vs_truth_deg="/".join(f"{d:.2f}" for d in
+                                         watch.r12_vs_truth_deg) or "none",
                launches_search_by_sim3=watch.launches["search_by_sim3"],
                launches_topup=watch.launches["topup"])
     for k in ("bf_matches", "ransac_inliers", "pairs", "sim3_inliers"):
@@ -1351,10 +1394,13 @@ def plane_loop(cam):
     """Phase 8's scene: the camera translates around a circle of radius 1
     over the textured plane, its view tilted 0.35 rad from the plane's
     normal (facing the plane squarely, a wrong Sim3 gets through:
-    ROADMAP.md §3), and goes on over the first tenth of the circle again:
-    with async mapping a keyframe is refused while the worker is busy, and
-    on a slow host a single turn often ended before one landed where the
-    circle revisits its start (PERF.md §6)."""
+    ROADMAP.md §3), and goes on over the first tenth of the circle again.
+    Every view shares some texture with every other, so tracking re-binds
+    the start once the circle nears it, and a loop can only close on the
+    keyframes before that, three quarters of a turn round, at its gates:
+    the legs are marginal, the async one most (ROADMAP.md §3; the scenes
+    tried in its place, PERF.md §6). `[loop-*-attempts]` prints every
+    attempt against its gates."""
     from ar_orbslam2_tpu_torch.data import synthetic
     return synthetic.render_plane_loop(cam, n_frames=LOOP_IMAGES,
                                        radius=1.0, tilt=0.35,
@@ -1400,7 +1446,7 @@ def run_loop_images(torch, CH, async_mapping):
     slam.precompile()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    watch = LoopWatch(torch, CH, lc)
+    watch = LoopWatch(torch, CH, lc, R_cw)
     fe = t.fused
     collected = []                  # host time of each chunk's readback
     collect = fe.collect_chunk      # (step_chunk reads back through it)
@@ -1448,6 +1494,12 @@ def run_loop_images(torch, CH, async_mapping):
           wall_s=f"{wall:.2f}", kernel_launches=launches,
           **loop_numbers(lc, watch))
     print(f"[{tag}-timeline] {timeline(t.metrics)}", flush=True)
+    fid = slam.store.kf_frame_id
+    print(f"[{tag}-attempts] " + " ".join(
+        f"{int(fid[st['kf']])}:{int(fid[st['cand']])}/"
+        + "/".join(str(st[k]) for k in ("bf_matches", "sim3_inliers",
+                                        "n_total") if k in st)
+        for st in lc.stats_log), flush=True)
     loop_gates(tag, slam, lc, tracked, len(imgs), am)
     for name in ("search_by_sim3", "topup"):
         if not watch.launches[name] or any(n != 1 for n in
@@ -2043,11 +2095,333 @@ def run_depth_path(torch, CH):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the user's entry points and the AR app
+# ---------------------------------------------------------------------------
+def write_apps_inputs(root):
+    """Phase 11's datasets, written under `root`: phase 6's sweep rendered
+    at APPS_FRAMES frames as a TUM directory (rgb/, rgb.txt,
+    groundtruth.txt) with a FileStorage settings file (the renderer's
+    intrinsics, Camera.fps 30, ORBextractor.nFeatures 1000); and its first
+    APPS_RGBD_FRAMES frames with the plane's exact depth maps as 16-bit PNGs
+    at DepthMapFactor 5000, with phase 10's bf."""
+    from ar_orbslam2_tpu_torch.data import datasets
+    from ar_orbslam2_tpu_torch.utils.config import write_settings
+    cam, imgs, R_cw, t_cw = make_sequence(APPS_FRAMES, FUSED_MOTION)
+    mono = os.path.join(root, "mono")
+    datasets.write_tum_sequence(mono, imgs, R_cw, t_cw)
+    write_settings(os.path.join(mono, "settings.yaml"), cam, fps=30.0,
+                   n_features=1000)
+    dcam = depth_camera()
+    n = APPS_RGBD_FRAMES
+    rgbd = os.path.join(root, "rgbd")
+    datasets.write_tum_sequence(
+        rgbd, imgs[:n], R_cw[:n], t_cw[:n],
+        depth=[plane_depth_map(dcam, R_cw[i], t_cw[i]) for i in range(n)],
+        depth_map_factor=APPS_DEPTH_FACTOR)
+    write_settings(os.path.join(rgbd, "settings.yaml"), dcam, fps=30.0,
+                   n_features=1000, depth_map_factor=APPS_DEPTH_FACTOR)
+    return dict(root=root, mono=mono, rgbd=rgbd, imgs=imgs, R_cw=R_cw)
+
+
+def app_ms(times, metrics):
+    """Median and mean ms/frame of the frames after initialization, from
+    the per-frame host times an app returns (a chunk's frames share its
+    time)."""
+    init = next((i for i, r in enumerate(metrics) if r.get("ok")), 0)
+    steady = [t * 1e3 for t in times[init + 1:]] or [float("nan")]
+    return (f"{percentile(steady, 0.5):.2f}",
+            f"{sum(steady) / len(steady):.2f}")
+
+
+def run_apps_eval(torch, CH, inputs):
+    """Phase 11a: python -m ar_orbslam2_tpu_torch.apps.run_eval tum, as a
+    user runs it: load_settings, build_system at full width, precompile(),
+    track_monocular_batch(chunk=8) through run_sequence, the trajectory
+    files, ATE/RPE against groundtruth.txt and the 0.05 m gate."""
+    from ar_orbslam2_tpu_torch.apps import run_dataset, run_eval
+    d = inputs["mono"]
+    prefix = os.path.join(inputs["root"], "eval")
+    warm = {}
+    real = run_dataset.precompile
+
+    def counted(slam):              # the launches of the warm-up apart
+        t0 = time.perf_counter()
+        real(slam)
+        torch.cuda.synchronize()
+        warm.update(s=time.perf_counter() - t0,
+                    launches=CH.fused_windowed_top2.launches)
+        CH.fused_windowed_top2.launches = 0
+    run_dataset.precompile = counted
+    CH.fused_windowed_top2.launches = 0
+    try:
+        with KernelInputs(torch, CH) as rec:
+            res = run_eval.run(["tum", os.path.join(d, "settings.yaml"), d,
+                                "--gate-ate", str(ATE_GATE),
+                                "--out", prefix])
+    finally:
+        run_dataset.precompile = real
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("apps-eval")
+    slam = res["slam"]
+    m = slam.tracking.metrics
+    fused = sum(1 for r in m if r.get("fused"))
+    med, mean = app_ms(res["times"], m)
+    phase("apps-eval", command="run_eval tum", frames=len(m),
+          code=res["code"], ate=res["ate"], rpe_t=res["rpe_t"],
+          rpe_deg=res["rpe_r"], frames_evaluated=res["n_eval"],
+          keyframes=slam.store.n_keyframes(), fused_frames=fused,
+          chunked_frames=sum(1 for r in m if r.get("chunked")),
+          precompile_s=f"{warm.get('s', float('nan')):.2f}",
+          captures_after_warmup=slam.captures_after_warmup,
+          ms_per_frame_median=med, ms_per_frame_mean=mean,
+          kernel_launches=launches, precompile_launches=warm.get("launches"),
+          launches_per_fused_frame=f"{launches / max(fused, 1):.2f}",
+          searches_bit_identical=shapes)
+    if res["code"] != 0:
+        fail(f"apps-eval: run_eval exited {res['code']} (ATE {res['ate']})")
+    for suffix in ("_tum.txt", "_kitti.txt"):
+        if not os.path.getsize(prefix + suffix):
+            fail(f"apps-eval: {prefix + suffix} is empty")
+    if not warm:
+        fail("apps-eval: run_eval did not precompile")
+    if slam.captures_after_warmup != 0:
+        fail(f"apps-eval: {slam.captures_after_warmup} graph captures after "
+             "warm-up")
+    if fused == 0 or launches < 2 * fused:
+        fail(f"apps-eval: {launches} kernel launches for {fused} fused "
+             "frames")
+    return launches
+
+
+def run_apps_ar(torch, CH, inputs):
+    """Phase 11b: python -m ar_orbslam2_tpu_torch.apps.run_ar on the same
+    directory: a cube anchored at frame APPS_CUBE_AT on the plane fitted to
+    that frame's tracked landmarks, an overlay per frame whose tracked dots
+    are that frame's keypoints."""
+    import cv2
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.apps import run_ar
+    from ar_orbslam2_tpu_torch.frontend.orb import OrbConfig, extract_orb
+    d = inputs["mono"]
+    out_dir = os.path.join(inputs["root"], "ar")
+    read_ms = []
+    real = run_ar.tracked_frame
+
+    def timed(slam, rec):           # the fused frame's readback, timed
+        lf = slam.tracking.last_frame
+        t0 = time.perf_counter()
+        frame = real(slam, rec)
+        if lf is None or lf.frame_id != rec["frame_id"]:
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+        return frame
+    run_ar.tracked_frame = timed
+    CH.fused_windowed_top2.launches = 0
+    try:
+        with KernelInputs(torch, CH) as rec:
+            out = run_ar.main([os.path.join(d, "settings.yaml"), d,
+                               "--out", out_dir,
+                               "--max-frames", str(APPS_AR_FRAMES),
+                               "--add-cube-at", str(APPS_CUBE_AT)])
+    finally:
+        run_ar.tracked_frame = real
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("apps-ar")
+    slam, viewer = out["slam"], out["viewer"]
+    m = slam.tracking.metrics
+    fused = [r["frame_id"] for r in m if r.get("fused")]
+    # the plane's normal in the camera of the cube's frame, estimated
+    # (R_cw n) against the rendered plane's (world z = 3, facing the
+    # camera) in the ground-truth camera: no alignment, no scale
+    angle = float("nan")
+    plane = viewer.plane
+    rec_at = next((r for r in m if r["frame_id"] == APPS_CUBE_AT), {})
+    if plane is not None and "R" in rec_at:
+        n_est = rec_at["R"] @ plane.normal
+        n_true = inputs["R_cw"][APPS_CUBE_AT] @ np.array([0.0, 0.0, -1.0])
+        angle = float(np.degrees(np.arccos(np.clip(n_est @ n_true,
+                                                   -1.0, 1.0))))
+    shapes_ok = {cv2.imread(os.path.join(out_dir, f)).shape
+                 for f in sorted(os.listdir(out_dir))}
+    # every APPS_DOT_EVERY-th fused frame: its dots against an extraction
+    # of its own image (the share that the image before it also has is
+    # printed: consecutive frames share many integer corner positions)
+    cfg = OrbConfig(n_features=slam.cfg.tracking.max_kp)
+
+    def gaps(dots, i):
+        f = extract_orb(torch.as_tensor(inputs["imgs"][i], device="cuda"),
+                        cfg)
+        kp = f["uv"][f["valid"]]
+        dd = torch.as_tensor(dots, device="cuda")
+        return (dd[:, None, :] - kp[None]).abs().amax(-1).amin(1).cpu()
+    worst, stale_share, checked = 0.0, 0.0, 0
+    for i in fused[::APPS_DOT_EVERY]:
+        dots = out["dots"][i]
+        if len(dots) == 0:
+            fail(f"apps-ar: frame {i} drew no tracked dots")
+        worst = max(worst, float(gaps(dots, i).max()))
+        stale_share = max(stale_share, float(
+            (gaps(dots, i - 1) <= APPS_DOT_TOL_PX).float().mean()))
+        checked += 1
+    med, mean = app_ms([t / 1e3 for t in out["frame_ms"]], m)
+    phase("apps-ar", command="run_ar", frames=len(m),
+          tracked=sum(1 for r in m if r.get("ok")), fused_frames=len(fused),
+          cube_frame=out["cube_frame"], cubes=len(viewer.cubes),
+          plane_inliers=None if plane is None else plane.n_inliers,
+          normal_error_deg=f"{angle:.3f}",
+          detect_plane_ms=(f"{out['plane_ms']:.2f}"
+                           if out["plane_ms"] is not None else "none"),
+          frame_readback_ms_median=(f"{percentile(read_ms, 0.5):.3f}"
+                                    if read_ms else "none"),
+          ms_per_frame_median=med, ms_per_frame_mean=mean,
+          overlays=len(os.listdir(out_dir)),
+          overlay_shapes=sorted(shapes_ok), dot_frames_checked=checked,
+          dot_gap_px_max=worst,
+          dots_also_on_previous_image_max=f"{stale_share:.3f}",
+          captures=slam.n_captures, kernel_launches=launches,
+          searches_bit_identical=shapes)
+    if out["cube_frame"] != APPS_CUBE_AT or len(viewer.cubes) != 1:
+        fail(f"apps-ar: {len(viewer.cubes)} cubes, anchored at "
+             f"{out['cube_frame']} (one at {APPS_CUBE_AT} expected)")
+    if plane.n_inliers < APPS_PLANE_INLIERS:
+        fail(f"apps-ar: the plane kept {plane.n_inliers} inliers")
+    if not angle < APPS_NORMAL_GATE_DEG:
+        fail(f"apps-ar: the plane's normal is {angle:.2f} deg off")
+    if len(os.listdir(out_dir)) != APPS_AR_FRAMES \
+            or shapes_ok != {(502, 640, 3)}:
+        fail(f"apps-ar: overlays {len(os.listdir(out_dir))} of shapes "
+             f"{shapes_ok}")
+    if out["drawn"] != list(range(APPS_AR_FRAMES)):
+        fail(f"apps-ar: overlays drew frames {out['drawn']}")
+    if checked == 0 or worst > APPS_DOT_TOL_PX:
+        fail(f"apps-ar: tracked dots {worst} px from their image's "
+             "keypoints")
+    if launches < 2 * len(fused):
+        fail(f"apps-ar: {launches} kernel launches for {len(fused)} fused "
+             "frames")
+    return launches
+
+
+def run_apps_multi(torch, CH, inputs):
+    """Phase 11c: python -m ar_orbslam2_tpu_torch.apps.run_multi
+    --synthetic 2: two SlamSystems interleaved chunk by chunk on the card,
+    each with its own captured frame step (no precompile, as in the JAX
+    package)."""
+    from ar_orbslam2_tpu_torch.apps import run_multi
+    settings = os.path.join(inputs["mono"], "settings.yaml")
+    CH.fused_windowed_top2.launches = 0
+    with KernelInputs(torch, CH) as rec:
+        out = run_multi.main([settings, "--synthetic", "2", "--frames",
+                              str(APPS_MULTI_FRAMES), "--chunk", str(CHUNK)])
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("apps-multi")
+    rows = []
+    for src, slam in zip(out["sources"], out["systems"]):
+        m = slam.tracking.metrics
+        rows.append(dict(name=src["name"],
+                         tracked=sum(1 for r in m if r.get("ok")),
+                         frames=len(src["frames"]),
+                         keyframes=slam.store.n_keyframes(),
+                         fused=sum(1 for r in m if r.get("fused")),
+                         captures=slam.n_captures))
+    phase("apps-multi", command="run_multi --synthetic 2",
+          aggregate_fps=f"{out['fps']:.2f}", wall_s=f"{out['wall_s']:.2f}",
+          systems=json.dumps(rows, separators=(",", ":")),
+          kernel_launches=launches, searches_bit_identical=shapes)
+    stores = {id(s.store) for s in out["systems"]}
+    if len(stores) != len(out["systems"]):
+        fail("apps-multi: two systems share a store")
+    for r in rows:
+        if not r["tracked"] > APPS_MULTI_TRACKED * r["frames"] \
+                or r["keyframes"] < 2:
+            fail(f"apps-multi: {r}")
+        if r["captures"] != 1:
+            fail(f"apps-multi: {r['name']} captured {r['captures']} graphs "
+                 "(its frame step once expected)")
+    fused = sum(r["fused"] for r in rows)
+    if fused == 0 or launches < 2 * fused:
+        fail(f"apps-multi: {launches} kernel launches for {fused} fused "
+             "frames")
+    return launches
+
+
+def run_apps_recall(torch):
+    """Phase 11d: the loop-recall study at run_study's defaults on the card
+    and on the CPU through the port: equal recalls and ranks, but for at
+    most one query whose float32 score ties order differently."""
+    from ar_orbslam2_tpu_torch.loop import recall_study
+    t0 = time.perf_counter()
+    card = recall_study.run_study(device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = recall_study.run_study(device="cpu")
+    host_s = time.perf_counter() - t0
+    for name, a, b in zip(("random", "k-medians"), card, host):
+        differ = sum(x != y for x, y in zip(a["ranks"], b["ranks"]))
+        summary = {k: v for k, v in a.items() if k != "ranks"}
+        phase("apps-recall", codebook=name,
+              card=json.dumps(summary, separators=(",", ":")),
+              cpu=json.dumps({k: v for k, v in b.items() if k != "ranks"},
+                             separators=(",", ":")),
+              queries_ranked_differently=differ,
+              card_s=f"{card_s:.2f}", cpu_s=f"{host_s:.2f}")
+        if len(a["ranks"]) != len(b["ranks"]) or differ > 1:
+            fail(f"apps-recall: {name}: {differ} queries ranked differently "
+                 "on the card and on the CPU")
+
+
+def run_apps_rgbd(torch, CH, inputs):
+    """Phase 11e: run_eval tum-rgbd (run_dataset's RGB-D path: the 16-bit
+    depth PNGs over DepthMapFactor, per-frame track_rgbd) and the ATE
+    without scale alignment under the 0.05 m gate."""
+    from ar_orbslam2_tpu_torch.apps import run_eval
+    d = inputs["rgbd"]
+    prefix = os.path.join(inputs["root"], "rgbd")
+    CH.fused_windowed_top2.launches = 0
+    with KernelInputs(torch, CH) as rec:
+        res = run_eval.run(["tum-rgbd", os.path.join(d, "settings.yaml"), d,
+                            "--gate-ate", str(ATE_GATE), "--out", prefix])
+    launches = CH.fused_windowed_top2.launches
+    shapes = rec.check("apps-rgbd")
+    slam = res["slam"]
+    m = slam.tracking.metrics
+    med, mean = app_ms(res["times"], m)
+    tracked = sum(1 for r in m if r.get("ok"))
+    phase("apps-rgbd", command="run_eval tum-rgbd", frames=len(m),
+          tracked=tracked, first_frame_tracked=bool(m and m[0].get("ok")),
+          code=res["code"], ate_metric=res["ate"],
+          fused_frames=sum(1 for r in m if r.get("fused")),
+          keyframes=slam.store.n_keyframes(),
+          ms_per_frame_median=med, ms_per_frame_mean=mean,
+          kernel_launches=launches, searches_bit_identical=shapes)
+    if res["code"] != 0:
+        fail(f"apps-rgbd: run_eval exited {res['code']} (ATE {res['ate']})")
+    if any(r.get("fused") for r in m) or tracked < TRACKED_SHARE_GATE * len(m):
+        fail(f"apps-rgbd: {tracked}/{len(m)} tracked on the per-frame path")
+    return launches
+
+
+def run_apps_path(torch, CH):
+    """Phase 11: the user's entry points on a dataset directory written
+    under a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as root:
+        inputs = write_apps_inputs(root)
+        launches = run_apps_eval(torch, CH, inputs)
+        launches += run_apps_ar(torch, CH, inputs)
+        launches += run_apps_multi(torch, CH, inputs)
+        run_apps_recall(torch)
+        launches += run_apps_rgbd(torch, CH, inputs)
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases of 3-10 to run alone, for "
+                    help="comma-separated phases of 3-11 to run alone, for "
                          "development (the result lines are then withheld)")
     opts = ap.parse_args()
     only = {int(x) for x in opts.phases.split(",") if x}
@@ -2108,12 +2482,12 @@ def main():
     if wanted(5):
         timed(5, lambda: run_graph_check(torch, CH))
 
-    # 6-10: the fused, chunked, pipelined main path; loss and
+    # 6-11: the fused, chunked, pipelined main path; loss and
     # relocalization on it; loop closing, inline and on the mapping worker;
-    # the configuration bench.py builds; the depth sensors
+    # the configuration bench.py builds; the depth sensors; the apps
     for n, run in ((6, run_fused_path), (7, run_reloc_path),
                    (8, run_loop_path), (9, run_default_config),
-                   (10, run_depth_path)):
+                   (10, run_depth_path), (11, run_apps_path)):
         if wanted(n):
             launches += timed(n, lambda: run(torch, CH))
     phase("timing", **{f"phase{n}_s": v for n, v in seconds.items()},

@@ -29,7 +29,12 @@ for new in ("loop.place_recognition", "estimation.pnp",
             "estimation.relocalization", "loop.loop_closing",
             "loop.vocab_train", "estimation.sim3_solver",
             "estimation.pose_graph", "mapping.global_ba",
-            "mapping.background_gba", "frontend.stereo"):
+            "mapping.background_gba", "frontend.stereo",
+            "utils.config", "data.datasets", "apps.common",
+            "apps.run_dataset", "apps.run_eval", "apps.run_stream",
+            "apps.run_ar", "apps.run_multi", "ar.plane", "ar.marker",
+            "ar.viewer", "viz.frame_drawer", "viz.map_drawer",
+            "loop.recall_study"):
     assert "ar_orbslam2_tpu_torch." + new in names, new
 import chip_smoke
 bad = [m for m in sys.modules
