@@ -193,26 +193,6 @@ def _make_texture(size=2048, seed=0):
     return img
 
 
-def _make_blocks(plane_extent, distance, s, seed, n=36):
-    """Flat-topped blocks standing on the plane: `n` squares 0.3-0.7 m
-    wide whose textured tops lie 0.15-0.45 m nearer the camera than the
-    plane, a quarter of its area; texel size `s` as the plane's. Returns
-    [(top texture, texture pixel -> world (X, Y, 1), top's z)], farthest
-    first."""
-    rng = np.random.default_rng(seed + 1)
-    tex = _make_texture(1024, seed + 1)
-    out = []
-    for _ in range(n):
-        side = rng.uniform(0.3, 0.7)
-        x0, y0 = rng.uniform(-plane_extent / 2, plane_extent / 2 - side, 2)
-        px = int(round(side / s))
-        r, c = rng.integers(0, tex.shape[0] - px, 2)
-        A_b = np.array([[s, 0, x0], [0, s, y0], [0, 0, 1.0]])
-        out.append((tex[r:r + px, c:c + px].copy(), A_b,
-                    distance - rng.uniform(0.15, 0.45)))
-    return sorted(out, key=lambda b: -b[2])
-
-
 def render_plane_sequence(cam, n_frames=40, seed=0, tex_size=2048,
                           plane_extent=6.0, distance=3.0, motion=0.5):
     """Render a camera moving in front of a textured plane at z=`distance`.
@@ -245,120 +225,110 @@ def render_plane_sequence(cam, n_frames=40, seed=0, tex_size=2048,
     return np.stack(images), np.stack(Rs), np.stack(ts)
 
 
-def render_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
-                      plane_extent=6.0, distance=1.5, radius=1.2,
-                      turns=0.999, tilt=0.0, outward=False,
-                      relief=False, angles=None):
-    """Render a camera translating once around a circle parallel to a
-    textured plane at z=`distance`: the end of the sequence revisits its
-    start (a loop), while views half a turn apart share no texture (2 *
-    radius exceeds the view's footprint). The camera keeps one viewing
-    direction, tilted by `tilt` radians about the image's vertical axis
-    from the plane's normal (0: facing it); with `outward` the view tilts
-    away from the circle's centre instead, turning with the camera, so
-    that its footprint lies outside the circle and views more than about
-    60 degrees apart share nothing (radius 1.0, tilt 0.35). With `relief`
-    flat-topped blocks stand on the plane (_make_blocks), so the scene is
-    not one plane. `angles` (radians, e.g. loop_angles()) places the
-    camera on the circle frame by frame in place of `n_frames` evenly
-    spaced over `turns`. Same return values as render_plane_sequence."""
-    if angles is None:
-        angles = 2 * np.pi * turns * np.arange(n_frames) / max(
-            n_frames - 1, 1)
-    out = _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
-                             distance, radius, tilt, baseline=None,
-                             outward=outward, relief=relief)
-    return out[0], out[2], out[3]
-
-
 def render_stereo_plane_loop(cam, n_frames=400, seed=0, tex_size=2048,
                              plane_extent=6.0, distance=1.5, radius=1.2,
                              turns=0.999, tilt=0.0):
-    """render_plane_loop's circle as rectified stereo pairs, the right
-    camera displaced by cam.bf / cam.fx along the camera x axis (as in
+    """Rectified stereo pairs of a camera translating once around a circle
+    parallel to a textured plane at z=`distance`: the end of the sequence
+    revisits its start, while views half a turn apart share no texture (2
+    * radius exceeds the view's footprint). The camera keeps one viewing
+    direction, tilted by `tilt` radians about the image's vertical axis
+    from the plane's normal (0: facing it); the right camera is displaced
+    by cam.bf / cam.fx along the camera x axis (as in
     render_stereo_plane_sequence). Returns (left, right, R_cw, t_cw)."""
     baseline = cam.bf / cam.fx if cam.bf > 0 else 0.1
-    angles = 2 * np.pi * turns * np.arange(n_frames) / max(n_frames - 1, 1)
-    return _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
-                              distance, radius, tilt, baseline)
-
-
-def loop_angles(turns=1.1, step=0.9, slow=(260.0, 340.0), factor=3.0,
-                ramp=15.0):
-    """Angles (radians) for render_plane_loop(angles=...): `turns` turns
-    at `step` degrees a frame, `factor` times slower over the arc `slow`
-    (degrees), with raised-cosine ramps `ramp` degrees wide at its ends."""
-    out, a = [], 0.0
-    while a <= 360.0 * turns:
-        out.append(a)
-        if slow[0] <= a <= slow[1]:
-            w = 1.0
-        elif slow[0] - ramp < a < slow[0]:
-            w = 0.5 - 0.5 * np.cos(np.pi * (a - slow[0] + ramp) / ramp)
-        elif slow[1] < a < slow[1] + ramp:
-            w = 0.5 + 0.5 * np.cos(np.pi * (a - slow[1]) / ramp)
-        else:
-            w = 0.0
-        a += step / (1.0 + (factor - 1.0) * w)
-    return np.radians(out)
-
-
-def _render_plane_loop(cam, angles, seed, tex_size, plane_extent,
-                       distance, radius, tilt, baseline, outward=False,
-                       relief=False):
     rng = np.random.default_rng(seed)
     tex = _make_texture(tex_size, seed)
     s = plane_extent / tex_size
     A = np.array([[s, 0, -plane_extent / 2],
                   [0, s, -plane_extent / 2],
                   [0, 0, 1.0]])
-    blocks = _make_blocks(plane_extent, distance, s, seed) if relief else ()
     K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
     lefts, rights, Rs, ts = [], [], [], []
-    for a in angles:
+    for i in range(n_frames):
+        a = 2 * np.pi * turns * i / max(n_frames - 1, 1)
         eye = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
-        lean = (np.cos(a), np.sin(a)) if outward else (1.0, 0.0)
-        R, t = _look_at(eye, eye + np.array([
-            distance * np.tan(tilt) * lean[0],
-            distance * np.tan(tilt) * lean[1], distance]))
+        R, t = _look_at(eye, eye + np.array([distance * np.tan(tilt), 0.0,
+                                             distance]))
+        t_r = t - np.array([baseline, 0.0, 0.0], t.dtype)
         lefts.append(_render_plane_view(tex, A, K, cam, R, t, distance,
-                                        rng, blocks))
-        if baseline is not None:
-            t_r = t - np.array([baseline, 0.0, 0.0], t.dtype)
-            rights.append(_render_plane_view(tex, A, K, cam, R, t_r,
-                                             distance, rng, blocks))
+                                        rng))
+        rights.append(_render_plane_view(tex, A, K, cam, R, t_r,
+                                         distance, rng))
         Rs.append(R)
         ts.append(t)
-    return (np.stack(lefts), np.stack(rights) if rights else None,
-            np.stack(Rs), np.stack(ts))
+    return np.stack(lefts), np.stack(rights), np.stack(Rs), np.stack(ts)
 
 
-def _render_plane_view(tex, A, K, cam, R, t, distance, rng, blocks=()):
-    """One view of the textured plane (exact homography warp), with the
-    tops of `blocks` (_make_blocks) drawn over it, farthest first."""
+def render_room_loop(cam, n_frames=440, seed=0, turns=1.1, radius=1.5,
+                     room=8.0, height=3.0, eye_height=1.5, tex_size=1024):
+    """Render a camera walking `turns` times around a circle of radius
+    `radius` centred in a square room `room` metres wide and `height`
+    high, level at `eye_height` and yawing with the circle so that it
+    always looks radially outward at the walls, starting at the middle of
+    one wall. Each wall, the
+    floor and the ceiling carry their own texture (_make_texture, seeds
+    seed + 1 to seed + 6), `tex_size` texels across the room's width.
+    Views more than about 90 degrees apart share nothing, so the start is
+    seen again only at the revisit, from the first pose's orientation; the
+    corners make the scene non-planar. Rendered by per-pixel ray-box
+    intersection: the nearest surface wins. World z is up; the camera's
+    image y points down. Same return values as render_plane_sequence."""
     import cv2
+    rng = np.random.default_rng(seed)
+    half, s = room / 2.0, room / tex_size
+    # one atlas: walls x=+h, x=-h, y=+h, y=-h, floor, ceiling
+    atlas = np.concatenate([_make_texture(tex_size, seed + 1 + k)
+                            for k in range(6)])
+    K_inv = np.linalg.inv(np.array([[cam.fx, 0, cam.cx],
+                                    [0, cam.fy, cam.cy], [0, 0, 1.0]]))
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                       np.arange(cam.height, dtype=np.float64))
+    rays = np.stack([u, v, np.ones_like(u)], -1) @ K_inv.T   # (H, W, 3)
+    angles = 2 * np.pi * turns * np.arange(n_frames) / max(
+        n_frames - 1, 1)
+    images, Rs, ts = [], [], []
+    for a in angles:
+        eye = np.array([radius * np.cos(a), radius * np.sin(a), eye_height])
+        R, t = _look_at(eye, eye + np.array([np.cos(a), np.sin(a), 0.0]),
+                        up=(0.0, 0.0, -1.0))
+        d = rays @ R.astype(np.float64)          # world directions (R^T d)
+        bound = np.array([half, half, height])
+        lo = np.array([-half, -half, 0.0])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            hit = np.where(d > 0, (bound - eye) / d, (lo - eye) / d)
+        hit = np.where(np.isfinite(hit) & (hit > 0), hit, np.inf)
+        axis = np.argmin(hit, -1)                # 0: x wall, 1: y, 2: z
+        p = eye + d * np.take_along_axis(hit, axis[..., None], -1)
+        pos = np.take_along_axis(d, axis[..., None], -1)[..., 0] > 0
+        surf = np.where(axis == 2, np.where(pos, 5, 4),
+                        2 * axis + np.where(pos, 0, 1))
+        across = np.where(axis == 0, p[..., 1], p[..., 0])
+        up = np.where(axis == 2, p[..., 1] + half, p[..., 2])
+        mx = np.clip((across + half) / s, 0, tex_size - 1)
+        my = np.clip(up / s, 0, tex_size - 1) + surf * tex_size
+        img = cv2.remap(atlas, mx.astype(np.float32), my.astype(np.float32),
+                        cv2.INTER_LINEAR, borderMode=cv2.BORDER_REPLICATE)
+        img = cv2.GaussianBlur(img, (3, 3), 0.6)
+        noise = rng.normal(0, 1.5, img.shape)
+        images.append(np.clip(img.astype(np.float32) + noise, 0,
+                              255).astype(np.uint8))
+        Rs.append(R)
+        ts.append(t)
+    return np.stack(images), np.stack(Rs), np.stack(ts)
 
-    def warp(tex, A, z, flags=cv2.INTER_LINEAR):
-        # world plane point (X, Y, z): u ~ K (R @ [X,Y,z] + t)
-        #   = K ([r1 r2 (z*r3 + t)]) @ [X Y 1]^T
-        M = np.stack([R[:, 0], R[:, 1], z * R[:, 2] + t], axis=1)
-        return cv2.warpPerspective(
-            tex, (K @ M @ A).astype(np.float64), (cam.width, cam.height),
-            flags=flags, borderMode=cv2.BORDER_CONSTANT, borderValue=0)
-    img = warp(tex, A, distance)
-    for top, A_b, z in blocks:
-        h, w = top.shape
-        corners = A_b @ np.array([[0, w, w, 0], [0, 0, h, h], [1, 1, 1, 1.0]])
-        p = K @ (R @ np.vstack([corners[:2], np.full(4, z)])
-                 + t[:, None])
-        if (p[2] <= 0.1).any():
-            continue                       # behind the camera: not in view
-        u, v = p[0] / p[2], p[1] / p[2]
-        if (u.max() < 0 or u.min() > cam.width or v.max() < 0
-                or v.min() > cam.height):
-            continue
-        mask = warp(np.ones_like(top), A_b, z, cv2.INTER_NEAREST) > 0
-        img[mask] = warp(top, A_b, z)[mask]
+
+def _render_plane_view(tex, A, K, cam, R, t, distance, rng):
+    """One view of the textured plane (exact homography warp)."""
+    import cv2
+    # world plane point (X, Y, distance): u ~ K (R @ [X,Y,dist] + t)
+    #   = K ([r1 r2 (dist*r3 + t)]) @ [X Y 1]^T
+    M = np.stack([R[:, 0], R[:, 1], distance * R[:, 2] + t], axis=1)
+    H = K @ M @ A
+    img = cv2.warpPerspective(
+        tex, H.astype(np.float64), (cam.width, cam.height),
+        flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT,
+        borderValue=0)
     img = cv2.GaussianBlur(img, (3, 3), 0.6)
     noise = rng.normal(0, 1.5, img.shape)
     return np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)
@@ -399,3 +369,67 @@ def render_stereo_plane_sequence(cam, n_frames=20, seed=0, tex_size=2048,
         ts.append(t)
     return (np.stack(lefts), np.stack(rights),
             np.stack(Rs), np.stack(ts))
+
+
+def stereo_loop_map(cam, map_cfg=None, n_kf=100, per_kf=160, span=6,
+                    radius=1.5, seed=0, noise_px=0.5, pose_noise=0.003,
+                    point_noise=0.01):
+    """A map as stereo tracking leaves it after one walk round a room with
+    its loop closed, written straight into a MapStore (for global BA and
+    its partitions).
+
+    `n_kf` keyframes evenly spaced on a level circle of radius `radius`,
+    each looking radially outward (render_room_loop's walk); keyframe i
+    first observes `per_kf` landmarks 2.5-5.5 m ahead, and each landmark is
+    seen by `span` consecutive keyframes, round the loop, with its
+    right-image u (cam.bf): a keyframe holds span * per_kf keypoints.
+    Pixels carry `noise_px` of noise; every keyframe pose but the first and
+    every landmark are perturbed by `pose_noise` / `point_noise` metres.
+    Keyframe 0 and the stereo scale fix the gauge and the closed loop
+    stiffens the chain, so a global BA has one well-conditioned optimum;
+    covisibility is a ring, so a covisibility shard's cameras form a band
+    narrower than the map. Returns (MapStore, true landmark positions
+    (n_kf * per_kf, 3))."""
+    from ..mapstore.map import MapConfig, MapStore
+    cfg = map_cfg or MapConfig()
+    if span * per_kf > cfg.max_kp:
+        raise ValueError(f"{span} x {per_kf} keypoints exceed max_kp "
+                         f"{cfg.max_kp}")
+    rng = np.random.default_rng(seed)
+    store = MapStore(cfg)
+    poses = []
+    for a in 2 * np.pi * np.arange(n_kf) / n_kf:
+        eye = np.array([radius * np.cos(a), radius * np.sin(a), 0.0])
+        poses.append(_look_at(eye, eye + np.array([np.cos(a), np.sin(a),
+                                                   0.0]),
+                              up=(0.0, 0.0, -1.0)))
+    # landmarks in front of their first keyframe, moved to the world
+    z = rng.uniform(2.5, 5.5, (n_kf, per_kf))
+    xc = np.stack([(rng.uniform(20, 290, z.shape) - cam.cx) * z / cam.fx,
+                   (rng.uniform(60, 420, z.shape) - cam.cy) * z / cam.fy,
+                   z], -1)
+    gt = np.concatenate([(x - t) @ R for (R, t), x in zip(poses, xc)])
+    noisy = gt + rng.normal(0, point_noise, gt.shape)
+    ids = store.add_map_points(
+        noisy.astype(np.float32),
+        rng.integers(0, 256, (len(gt), 32)).astype(np.uint8), first_kf=0)
+    anchor = np.arange(len(gt)) // per_kf
+    P = cfg.max_kp
+    for i, (R, t) in enumerate(poses):
+        seen = np.nonzero((i - anchor) % n_kf < span)[0]
+        x = gt[seen] @ R.T + t
+        uv = np.zeros((P, 2), np.float32)
+        uv[:len(seen)] = np.c_[cam.fx * x[:, 0] / x[:, 2] + cam.cx,
+                               cam.fy * x[:, 1] / x[:, 2] + cam.cy] \
+            + rng.normal(0, noise_px, (len(seen), 2))
+        uvr = np.full(P, -1.0, np.float32)
+        uvr[:len(seen)] = uv[:len(seen), 0] - cam.bf / x[:, 2]
+        t_kf = t + (rng.normal(0, pose_noise, 3) if i else 0.0)
+        k = store.add_keyframe(
+            R.astype(np.float32), t_kf.astype(np.float32), uv,
+            rng.integers(0, 256, (P, 32)).astype(np.uint8),
+            np.zeros(P, np.int32), np.arange(P) < len(seen),
+            timestamp=i / 30.0, frame_id=i, uvr=uvr)
+        store.add_observations(ids[seen], k, np.arange(len(seen)))
+        store.update_connections(k)
+    return store, gt.astype(np.float32)

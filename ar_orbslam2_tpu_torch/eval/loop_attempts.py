@@ -1,14 +1,9 @@
-"""Every loop-closing attempt on a rendered plane loop (chip_smoke.py
-phase 8's scene by default).
-
-The camera translates `--turns` times around a circle of radius
-`--radius` over a textured plane `--extent` metres wide in `--frames`
-evenly spaced frames (`--slow-arc`: synthetic.loop_angles' pace), its
-view tilted 0.35 rad (synthetic.render_plane_loop; with
-`--outward` the view leans away from the circle's centre, with `--relief`
-blocks stand on the plane), through SlamConfig() (or
-SlamConfig(async_mapping=True)) with tests/test_loop_reloc.py's
-LoopCloserConfig(min_kf_gap=8, consistency_threshold=1), at full width.
+"""Every loop-closing attempt on chip_smoke.py phase 8's room loop
+(synthetic.render_room_loop: `--turns` turns of a circle of radius
+`--radius` in an 8 m room, looking outward at walls that each carry their
+own texture, in `--frames` frames), through SlamConfig() (or
+SlamConfig(async_mapping=True)) at full width, with LoopCloserConfig()'s
+defaults and track_monocular_batch(chunk=8), as phase 8 runs it.
 One JSON line per run: the loops closed, the accepted S12's rotation
 against the map's and against the true relative rotation of its two
 keyframes, the keyframe ATE, the wall time, the first frame past the
@@ -20,16 +15,16 @@ SearchBySim3 pairs, optimize_sim3 inliers, top-up total) against the
 gates (20, -, -, 20, 40). With `--detections` it also lists, for each
 loop detection from three quarters of the turn on, the candidates'
 source frames and which keyframes of frames 0-12 are covisible with the
-query. The first line is the frame-level reference: brute-force ORB
-matches between the first frame and the frame where the circle revisits
-it. With --observe every ComputeSim3 is rejected, so a run shows what the
-database proposes all the way round; with --no-loops the system runs
-without a loop closer.
+query; with `--timeline` each frame's state, inliers, local-map points
+visible and keyframe count. The first line is the frame-level reference:
+brute-force ORB matches between the first frame and the frame where the
+circle revisits it. With --observe every ComputeSim3 is rejected, so a
+run shows what the database proposes all the way round; with --no-loops
+the system runs without a loop closer.
 
   python -m ar_orbslam2_tpu_torch.eval.loop_attempts [--runs 3] \
-      [--async-mapping] [--observe] [--no-loops] [--radius 1.0] \
-      [--extent 6.0] [--frames 440] [--slow-arc] [--turns 1.1] [--outward] [--relief] \
-      [--detections]
+      [--async-mapping] [--observe] [--no-loops] [--frames 440] \
+      [--turns 1.1] [--radius 1.5] [--timeline] [--detections]
 """
 from __future__ import annotations
 
@@ -45,7 +40,6 @@ from ..core.device import resolve_device
 from ..data import synthetic
 from ..eval.ate import ate_rmse
 from ..frontend.orb import OrbConfig, extract_orb
-from ..loop.loop_closing import LoopCloserConfig
 from ..matching import matcher
 from ..ops import hamming as H
 from ..system.slam import SlamConfig, SlamSystem
@@ -61,18 +55,13 @@ def main(argv=None):
                     help="reject every ComputeSim3: no loop closes")
     ap.add_argument("--no-loops", action="store_true",
                     help="SlamConfig(enable_loop_closing=False)")
-    ap.add_argument("--radius", type=float, default=1.0)
-    ap.add_argument("--extent", type=float, default=6.0,
-                    help="width of the textured plane (m)")
+    ap.add_argument("--radius", type=float, default=1.5,
+                    help="the circle's radius (m; phase 8's: 1.5)")
     ap.add_argument("--frames", type=int, default=440)
-    ap.add_argument("--slow-arc", action="store_true",
-                    help="synthetic.loop_angles' pace (0.9 degrees a frame, "
-                    "0.3 over 260-340 degrees) in place of --frames")
     ap.add_argument("--turns", type=float, default=1.1)
-    ap.add_argument("--outward", action="store_true",
-                    help="the view tilts away from the circle's centre")
-    ap.add_argument("--relief", action="store_true",
-                    help="blocks stand on the plane")
+    ap.add_argument("--timeline", action="store_true",
+                    help="add each frame's state, inliers, local-map "
+                    "points visible and keyframe count")
     ap.add_argument("--detections", action="store_true",
                     help="list the loop detections of the last quarter")
     ap.add_argument("--device", default=None,
@@ -80,14 +69,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cam = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640,
                  height=480)
-    if args.slow_arc:
-        angles = synthetic.loop_angles(args.turns)
-    else:
-        angles = 2 * np.pi * args.turns * np.arange(args.frames) / max(
-            args.frames - 1, 1)
-    imgs, R_cw, t_cw = synthetic.render_plane_loop(
-        cam, radius=args.radius, tilt=0.35, angles=angles,
-        plane_extent=args.extent, outward=args.outward, relief=args.relief)
+    imgs, R_cw, t_cw = synthetic.render_room_loop(
+        cam, n_frames=args.frames, turns=args.turns, radius=args.radius)
+    angles = 2 * np.pi * args.turns * np.arange(args.frames) / max(
+        args.frames - 1, 1)
     gt = -(np.swapaxes(R_cw, -1, -2) @ t_cw[..., None])[..., 0]
     n_frames = len(imgs)
     half, late, revisit = (int(np.argmin(np.abs(angles - f * np.pi)))
@@ -99,8 +84,7 @@ def main(argv=None):
         H.to_signs(f0["desc_bits"]), f0["valid"],
         H.to_signs(f1["desc_bits"]), f1["valid"])
     print(json.dumps(dict(frames=(0, revisit), radius=args.radius,
-                          extent=args.extent, outward=args.outward,
-                          relief=args.relief,
+                          turns=args.turns,
                           bf_matches=int((idx >= 0).sum()))), flush=True)
     for run in range(args.runs):
         slam = SlamSystem(cam, SlamConfig(
@@ -109,7 +93,6 @@ def main(argv=None):
         lc = slam.tracking.loop_closer
         detections, rebound, r12_deg, r12_true = [], [], [], []
         if lc is not None:
-            lc.cfg = LoopCloserConfig(min_kf_gap=8, consistency_threshold=1)
             if args.observe:
                 lc._compute_sim3 = lambda kf, cand, stats=None: None
             detect = lc.kfdb.detect_loop_candidates
@@ -178,6 +161,12 @@ def main(argv=None):
             attempts=attempts)
         if args.detections:
             out["detections"] = detections
+        if args.timeline:
+            out["timeline"] = " ".join(
+                f"{r['frame_id']}:{r['state'][0]}{r['n_inliers']}/"
+                f"{r.get('local_visible', 0)}k{r['n_kf']}"
+                + ("H" if r.get("kf_hard") else "K" if "t_kf_ms" in r
+                   else "") for r in slam.tracking.metrics)
         print(json.dumps(out), flush=True)
         del slam
         if dev.type == "cuda":

@@ -387,7 +387,7 @@ class LoopCloser:
         """Parity: LoopClosing::CorrectLoop — propagate the corrected Sim3
         over the current covisible group, fuse, optimize the essential
         graph, run global BA."""
-        s, cfg, cam = self.store, self.cfg, self.cam
+        s, cfg = self.store, self.cfg
         stats = {} if stats is None else stats
         t0 = time.perf_counter()
         group = [kf] + [int(g) for g in s.covisible_keyframes(kf)]
@@ -462,19 +462,26 @@ class LoopCloser:
         stats["t_essential_graph_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         if cfg.run_global_ba:
-            if cfg.background_gba:
-                # abort any in-flight GBA (its snapshot is stale now) and
-                # start a fresh one over the corrected map — the mbStopGBA
-                # + new thread(RunGlobalBundleAdjustment) hand-off
-                self.gba.abort()
-                self.gba.launch()
-            else:
-                global_bundle_adjustment(s, cam, device=self.device)
+            self._global_ba()
         stats["t_gba_launch_ms"] = (time.perf_counter() - t0) * 1e3
         # refresh landmark derived state
         with s.lock:
             s.update_normal_and_depth(s.map_point_ids())
         self.loops.append(dict(kf=kf, cand=cand, **sim3))
+
+    def _global_ba(self):
+        """The full-map BA over the corrected map. Background: abort any
+        in-flight one (its snapshot is stale now) and launch a fresh one —
+        the mbStopGBA + new thread(RunGlobalBundleAdjustment) hand-off.
+        A loop is closed by this process alone, so the BA stays on this
+        rank's device even inside a process group: no other rank would
+        join its collectives."""
+        if self.cfg.background_gba:
+            self.gba.abort()
+            self.gba.launch()
+        else:
+            global_bundle_adjustment(self.store, self.cam, distributed=False,
+                                     device=self.device)
 
     # ------------------------------------------------------------------
     def _essential_edges(self, pre_R, pre_t):

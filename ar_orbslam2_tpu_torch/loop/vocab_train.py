@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..ops import hamming as H
 
 
@@ -50,10 +51,12 @@ def train_codebook(desc_bits, n_words=4096, n_iters=6, seed=0, device=None):
 
     Args:
       desc_bits: (N, 256) uint8 training descriptors.
-      device: where the assignment matmuls run.
+      device: where the assignment matmuls run (None: the card; no GPU
+        raises, as core.device says).
     Returns:
       (n_words, 256) uint8 codebook bits.
     """
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     desc_bits = np.asarray(desc_bits, np.uint8)
     n = len(desc_bits)

@@ -18,6 +18,9 @@ block=True)`` waits for it; the write-back and the propagation run under
 re-anchors at its next chunk. An aborted job is dropped unapplied, but its
 tensors stay referenced until its stream has finished with them. On the
 CPU the BA runs inside ``launch``: the job has finished when it returns.
+The BA stays on this rank's device even inside a process group
+(``distributed=False``): a loop is closed by one process, whose peers
+would never join the distributed route's collectives.
 """
 from __future__ import annotations
 
@@ -118,11 +121,13 @@ class BackgroundGBA:
                     job.start.record()
                     job.res = dispatch_global_ba(job.g, self.cam,
                                                  n_iters=self.n_iters,
+                                                 distributed=False,
                                                  device=self.device)
                     job.event.record()
             else:
                 job.res = dispatch_global_ba(job.g, self.cam,
                                              n_iters=self.n_iters,
+                                             distributed=False,
                                              device=self.device)
         except BaseException as e:      # raised by poll on the caller
             job.error = e

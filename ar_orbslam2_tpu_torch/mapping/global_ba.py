@@ -7,21 +7,29 @@ landmark against all observations, through the same Schur LM as local BA
 (estimation/local_ba.bundle_adjust). Shapes are padded to power-of-two
 buckets, as in the JAX package.
 
-Only the single-device route is ported. The JAX package's landmark-sharded
-(``distributed``) and covisibility-banded (``banded``) routes run on a
-device mesh (parallel/dist_ba.py); asking for either raises
-NotImplementedError, and ``distributed=None`` means one device.
+Three routes, as in the JAX package: one device
+(estimation/local_ba.bundle_adjust), the landmark-sharded distributed BA
+over the ranks of a torch.distributed group (``distributed``,
+parallel/dist_ba.py) and its covisibility-banded camera exchange
+(``banded``, on gather_global_partitioned's layout). ``distributed=None``
+means distributed when an initialized group has more than one rank, as in
+the JAX package. Every rank of the group runs the same call (SPMD) and
+writes the full result back into its own store; unlike the JAX package's
+devices, the ranks are processes, so a caller that acts for its own rank
+alone (the loop closer, the background BA) passes ``distributed=False``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..core.device import resolve_device
 from ..core.lie import project_so3
 from ..estimation.local_ba import bundle_adjust
+from ..parallel import dist_ba
+from ..parallel.partition import banded_layout
 
-_UNPORTED = ("is not ported to ar_orbslam2_tpu_torch yet (ROADMAP.md, "
-             "'Modules still to port', item 6: parallel/)")
 _KEYS = ("cam_R", "cam_t", "cam_fixed", "cam_valid", "pts", "pt_valid",
          "obs_cam", "obs_uv", "obs_oct", "obs_valid", "obs_uvr")
 
@@ -81,17 +89,117 @@ def gather_global(store, obs_bucket=None):
                 obs_uvr=obs_uvr, obs_kf=okf)
 
 
+def gather_global_partitioned(store, n_shards):
+    """gather_global in the covisibility-partitioned BANDED layout
+    (parallel/partition.banded_layout): camera axis permuted to
+    covisibility-BFS order, landmark axis grouped into n_shards equal-size
+    blocks whose camera footprints are contiguous bands, observations in
+    BAND-LOCAL camera indices. Feeds dist_ba.dist_bundle_adjust_banded,
+    whose per-iteration exchange is n_shards*(6W)^2 instead of (6C)^2.
+
+    Returns None when the map is empty. The caller decides whether the
+    exchange is economical (n_shards * W^2 < C^2); the banded path stays
+    exact either way."""
+    s = store
+    lay = banded_layout(s, n_shards)
+    if lay is None:
+        return None
+    kf_order = lay["kf_order"]
+    n_kf = len(kf_order)
+    C = _bucket(n_kf)
+    W = min(lay["band_w"], C)
+    O = s.cfg.max_obs
+
+    cam_R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    cam_t = np.zeros((C, 3), np.float32)
+    cam_R[:n_kf] = s.kf_R[kf_order]
+    cam_t[:n_kf] = s.kf_t[kf_order]
+    cam_valid = np.zeros(C, bool)
+    cam_valid[:n_kf] = True
+    cam_fixed = ~cam_valid
+    cam_fixed[np.nonzero(kf_order == 0)[0]] = True    # gauge: KF0 fixed
+
+    pos_of = np.full(s.cfg.max_keyframes, -1, np.int64)
+    pos_of[kf_order] = np.arange(n_kf)
+
+    shard_mp = lay["shard_mp"]                        # (n_shards, P_s)
+    band_off = lay["band_off"].astype(np.int32)       # (n_shards,)
+    mp_arr = shard_mp.reshape(-1)
+    selp = np.maximum(mp_arr, 0)
+    pts = s.mp_pos[selp].copy()
+    pt_valid = mp_arr >= 0
+
+    okf = s.mp_obs_kf[selp, :O]
+    oft = np.maximum(s.mp_obs_feat[selp, :O], 0)
+    pos = np.where(okf >= 0, pos_of[np.maximum(okf, 0)], -1)
+    # band-local camera indices (per shard)
+    off_row = np.repeat(band_off, shard_mp.shape[1])[:, None]
+    obs_cam = np.where(pos >= 0, pos - off_row, -1).astype(np.int32)
+    obs_valid = (pos >= 0) & pt_valid[:, None] \
+        & (obs_cam >= 0) & (obs_cam < W)
+    obs_cam = np.where(obs_valid, obs_cam, -1)
+    obs_uv = s.kf_uv[np.maximum(okf, 0), oft]
+    obs_oct = s.kf_octave[np.maximum(okf, 0), oft]
+    obs_uvr = np.where(okf >= 0, s.kf_uvr[np.maximum(okf, 0), oft],
+                       -1.0).astype(np.float32)
+    return dict(kf_order=kf_order, mp_arr=mp_arr, n_kf=n_kf,
+                cam_R=cam_R, cam_t=cam_t, cam_fixed=cam_fixed,
+                cam_valid=cam_valid, pts=pts, pt_valid=pt_valid,
+                obs_cam=obs_cam, obs_uv=obs_uv, obs_oct=obs_oct,
+                obs_valid=obs_valid, obs_uvr=obs_uvr,
+                band_off=band_off, band_w=W)
+
+
+def _world_size():
+    """Ranks of the initialized default group; 1 without one."""
+    return dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+
+
+_PT_KEYS = ("pts", "pt_valid", "obs_cam", "obs_uv", "obs_oct", "obs_valid",
+            "obs_uvr")
+_CAM_KEYS = ("cam_R", "cam_t", "cam_fixed", "cam_valid")
+
+
 def dispatch_global_ba(g, cam, n_iters=20, distributed=None, gp=None,
                        device=None):
-    """Upload a gathered problem to `device` and run the full-map BA on
-    the current stream. Returns the result tensors (no host read).
+    """Upload a gathered problem and run the full-map BA on the current
+    stream. Returns the result tensors (no host read), the landmark axis
+    whole on every rank.
 
-    distributed=True and a partitioned layout `gp` are the JAX package's
-    multi-device routes and raise NotImplementedError."""
-    if distributed:
-        raise NotImplementedError(f"distributed global BA {_UNPORTED}")
-    if gp is not None:
-        raise NotImplementedError(f"banded global BA {_UNPORTED}")
+    distributed=None auto-routes: with an initialized group of more than
+    one rank (and P divisible by it) the landmark axis is sharded over the
+    ranks (parallel/dist_ba.py); otherwise one device runs
+    estimation/local_ba.bundle_adjust. gp: a partitioned layout
+    (gather_global_partitioned) with one shard per rank selects the BANDED
+    camera exchange. device: None means the card (core.device); on NCCL
+    the rank's own card."""
+    world = _world_size()
+    P = g["pts"].shape[0]
+    use_dist = distributed if distributed is not None \
+        else (world > 1 and P % world == 0)
+    if use_dist:
+        mesh = dist_ba.make_mesh(device=device)
+        banded = gp is not None and gp["pts"].shape[0] % world == 0 \
+            and len(gp["band_off"]) == world
+        src = gp if banded else g
+        pts, pt_valid, obs_cam, obs_uv, obs_oct, obs_valid, obs_uvr = \
+            dist_ba.shard_point_arrays(mesh, *(src[k] for k in _PT_KEYS))
+        cams = dist_ba.replicate(mesh, *(src[k] for k in _CAM_KEYS))
+        if banded:
+            (band_off,) = dist_ba.shard_point_arrays(mesh, gp["band_off"])
+            res = dist_ba.dist_bundle_adjust_banded(
+                mesh, *cams, pts, pt_valid, obs_cam, obs_uv, obs_oct,
+                obs_valid, cam, band_off=band_off, band_w=gp["band_w"],
+                obs_uvr=obs_uvr, n_iters=n_iters)
+        else:
+            res = dist_ba.dist_bundle_adjust(
+                mesh, *cams, pts, pt_valid, obs_cam, obs_uv, obs_oct,
+                obs_valid, cam, obs_uvr=obs_uvr, n_iters=n_iters)
+        res["pts"] = dist_ba.gather_points(mesh, res["pts"])
+        res["obs_inlier"] = dist_ba.gather_points(mesh, res["obs_inlier"])
+        return res
+    device = resolve_device(device)
     d = {k: torch.as_tensor(np.ascontiguousarray(g[k]), device=device)
          for k in _KEYS}
     return bundle_adjust(
@@ -109,29 +217,60 @@ def read_result(res):
             float(res["cost"].cpu()))
 
 
-def global_bundle_adjustment(store, cam, n_iters=20, distributed=None,
-                             banded=None, device=None):
-    """Run full BA on `device` and write the results back into the store
-    (under its lock; a keyframe slot reused since the gather keeps its new
-    keyframe's pose). Returns the final cost."""
-    if distributed or banded:
-        raise NotImplementedError(
-            f"{'distributed' if distributed else 'banded'} global BA "
-            f"{_UNPORTED}")
+def _write_back(store, kf_ids, seq, mp_ids, cam_R, cam_t, pts):
+    """Poses and landmarks into the store, under its lock: a keyframe
+    slot reused since the gather keeps its new keyframe's pose, and
+    non-finite results are skipped."""
     s = store
-    g = gather_global(store)
-    seq = s.kf_seq[g["kf_arr"][:g["n_kf"]]].copy()
-    cam_R, cam_t, pts, cost = read_result(
-        dispatch_global_ba(g, cam, n_iters=n_iters, device=device))
-    nk, nm = g["n_kf"], g["n_mp"]
-    kf_ids = g["kf_arr"][:nk]
+    nk = len(kf_ids)
     with s.lock:
         ok_R = (np.isfinite(cam_R[:nk]).all((-1, -2))
                 & (s.kf_seq[kf_ids] == seq))
         s.kf_R[kf_ids[ok_R]] = cam_R[:nk][ok_R]
         s.kf_t[kf_ids[ok_R]] = cam_t[:nk][ok_R]
-        mp_ids = g["mp_arr"][:nm]
-        ok_p = np.isfinite(pts[:nm]).all(-1)
-        s.mp_pos[mp_ids[ok_p]] = pts[:nm][ok_p]
+        live = mp_ids >= 0
+        ok_p = live & np.isfinite(pts[:len(mp_ids)]).all(-1)
+        s.mp_pos[mp_ids[ok_p]] = pts[:len(mp_ids)][ok_p]
         s.bump()   # poses/landmarks moved -> invalidate device caches
+
+
+def global_bundle_adjustment(store, cam, n_iters=20, distributed=None,
+                             banded=None, device=None):
+    """Run full BA and write the results back into the store (under its
+    lock; a keyframe slot reused since the gather keeps its new keyframe's
+    pose). Returns the final cost.
+
+    distributed: None = distributed when an initialized group has more
+    than one rank. banded: None = auto (the covisibility-banded exchange
+    when the layout is local enough to beat the dense all_reduce:
+    n_ranks * W^2 < C^2, on more than one rank); True/False forces it
+    (True also on one rank). device: None means the card; on NCCL the
+    rank's own card."""
+    world = _world_size()
+    use_dist = distributed if distributed is not None else world > 1
+    gp = None
+    if use_dist and banded is not False and (world > 1 or banded):
+        gp = gather_global_partitioned(store, world)
+        if gp is None and banded is True:
+            raise ValueError("banded layout unavailable for this map")
+        if gp is not None and banded is None:
+            C = gp["cam_R"].shape[0]
+            W = gp["band_w"]
+            if world * W * W >= C * C:
+                gp = None      # dense all_reduce cheaper on this small map
+    s = store
+    if gp is not None:
+        seq = s.kf_seq[gp["kf_order"]].copy()
+        cam_R, cam_t, pts, cost = read_result(dispatch_global_ba(
+            gp, cam, n_iters=n_iters, distributed=use_dist, gp=gp,
+            device=device))
+        _write_back(s, gp["kf_order"], seq, gp["mp_arr"], cam_R, cam_t, pts)
+        return cost
+    g = gather_global(store)
+    nk, nm = g["n_kf"], g["n_mp"]
+    seq = s.kf_seq[g["kf_arr"][:nk]].copy()
+    cam_R, cam_t, pts, cost = read_result(dispatch_global_ba(
+        g, cam, n_iters=n_iters, distributed=use_dist, device=device))
+    _write_back(s, g["kf_arr"][:nk], seq, g["mp_arr"][:nm], cam_R, cam_t,
+                pts)
     return cost

@@ -58,6 +58,13 @@ from .frame import Frame
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 LOST = "LOST"
+# per-frame decay of the inlier peak that the pipelined path's hard-decline
+# rescue compares with. The JAX package decays it 5% a frame; a camera that
+# turns faster than the mapping worker maps loses inliers a few percent a
+# frame, the peak keeps pace and the rescue never fires, so tracking runs
+# down to LOST (PERF.md §6: the room loop). 1% a frame keeps the
+# reference level near the recent peak.
+INLIER_PEAK_DECAY = 0.99
 
 
 @dataclass(frozen=True)
@@ -223,6 +230,7 @@ class Tracking:
         self._fused_prev_pose = None
         self._dbg_submit_ms = None
         self.n_resets = 0
+        self.n_rescue_dropped = 0  # rescue keyframes that did not hold
         self._dbg: dict = {}     # per-frame stage diagnostics -> metrics
         # device-resident local-map bundle, cached on (map version, KF set)
         self._local_bundle_cache: tuple | None = None
@@ -604,12 +612,20 @@ class Tracking:
                 frame = fe.materialize_chunk_frame(
                     kf_at, timestamps[kf_at], base_frame_id + kf_at)
                 self._reanchor_frame(frame, anchor_info)
-                if hard:
-                    # re-align the pose to the live map on the frame's
-                    # own bindings before insertion. Insert even if few
-                    # inliers survive — a hard KF's forward coverage is
-                    # what rescues the next chunk.
-                    self._refresh_kf_pose(frame)
+                if hard and self._refresh_kf_pose(frame) \
+                        < cfg.min_inliers_local:
+                    # The frame's own bindings do not hold its pose on the
+                    # live map (a loop correction moved the map under the
+                    # chunk). The JAX package inserts the keyframe anyway
+                    # (tracking.py:619-626), at a pose that can be
+                    # decimetres off; the port drops it, as a deferred
+                    # insert is dropped, and re-acquires against a bundle
+                    # rebuilt on the reference keyframe.
+                    self.last_kf_frame_id = kf_fid_before
+                    self.n_rescue_dropped += 1
+                    with self.store.lock:
+                        self._rebuild_on_keyframe(self.ref_kf)
+                    return consumed
                 kf = self._insert_keyframe(frame)
                 if am is not None and hard:
                     # run ONLY the coverage-critical stages (triangulate
@@ -739,7 +755,8 @@ class Tracking:
         # not blind the hard-decline barrier)
         if ok_flag:
             self._inl_peak = max(self._inl_peak, float(n_inliers))
-            self._inl_decay = max(self._inl_decay * 0.95, float(n_inliers))
+            self._inl_decay = max(self._inl_decay * INLIER_PEAK_DECAY,
+                                  float(n_inliers))
         else:
             self._inl_peak = 0.0
             self._inl_decay = 0.0

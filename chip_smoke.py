@@ -58,11 +58,12 @@ non-zero before the final line):
                 synchronisations;
   8. loop     — loop closing at full width (SlamConfig's defaults: 1024
                 keypoints, 4096-landmark bundle, 4096-word vocabulary, 1024
-                keyframes; LoopCloserConfig(min_kf_gap=8,
-                consistency_threshold=1) as in tests/test_loop_reloc.py):
-                a camera translating once around a circle over the textured
-                plane, its view tilted 0.35 rad from the plane's normal (440
-                frames at 640x480: 1.1 turns, the end revisits the start),
+                keyframes, LoopCloserConfig(): a loop is taken after three
+                consistent detections): a camera walking 1.1 turns of a
+                circle of radius 1.5 m in the middle of an 8 m square room, level, looking radially
+                outward at walls that each carry their own texture (440
+                frames at 640x480; synthetic.render_room_loop: the end
+                revisits the start from the first pose's orientation),
                 through precompile() and track_monocular_batch(chunk=8),
                 with SlamConfig() (the loop closes inline: sync) and with
                 SlamConfig(async_mapping=True) (on the mapping worker, the
@@ -72,8 +73,9 @@ non-zero before the final line):
                 worker, no graph captured after warm-up; SearchBySim3 one
                 batched launch and the projection top-up one launch per
                 attempt, both bit-identical to the plain version on the
-                run's own inputs; the keyframe ATE with loops (sync and
-                async) below the same sequence's without. Then
+                run's own inputs; the first loop's S12 within 5 degrees of
+                the true relative rotation; the keyframe ATE with loops
+                (sync and async) below the same sequence's without. Then
                 test_loop_closure_improves_ate's noisy orbit at that test's
                 size, loops on and off (>= 1 loop; ATE reported). Prints
                 the loop's stage times, the global BA's device time and the
@@ -137,6 +139,27 @@ non-zero before the final line):
                 the 0.05 m gate without scale alignment, per frame. Every
                 search of every leg is held bit for bit against its plain
                 version.
+ 12. dist     — the distributed routes (parallel/) on the card: 12a
+                scaling_bench's problem at its defaults (65,536 landmarks x
+                64 cameras x 16 observations, 10 LM iterations) in a group
+                of one rank on NCCL and of two ranks on gloo sharing the
+                card (multihost.spawn_local): ms per LM iteration, the two
+                costs within 1e-4; 12b a stereo map of a walk round a
+                room, its loop closed (synthetic.stereo_loop_map: 100
+                keyframes on a 1.5 m circle looking outward, 16,000
+                landmarks each seen by 6 consecutive keyframes, bf = 50, so
+                keyframe 0 and the observed scale fix the gauge),
+                saved with the port's checkpoint and loaded in every rank,
+                global_bundle_adjustment single-device and dense and banded
+                in both groups: the 2-shard band narrower than the map,
+                banded vs dense within 5e-3 (camera translations, median
+                landmark), two ranks vs one within 1e-4 on the cost and
+                1e-3 m on translations and the median landmark, every
+                cost finite and below the cost before, the banded layout
+                keeping every observation of a live keyframe; ms per
+                route and collectives per LM iteration; 12c
+                multihost.selftest in both groups. One card shows the
+                exchange code, not interconnect bandwidth.
 
 The kernel's `bound_ms` is the least time the card could take for the
 timed call: the larger of its bytes (every input read once, every output
@@ -181,8 +204,11 @@ RELOC_GREY = 8             # phase 7: uniform grey frames (one chunk)
 RELOC_BACK = 40            # phase 7: resume this many frames earlier
 RELOC_CENTRE_GATE = 0.05   # phase 7: relocalized centre vs ground truth
 LOOP_FRAMES = 64           # phase 8: tests/test_loop_reloc.py's orbit
-LOOP_IMAGES = 440          # phase 8: frames of the rendered plane loop
+LOOP_IMAGES = 440          # phase 8: frames of the rendered room loop
 LOOP_TURNS = 1.1           # phase 8: the circle, then a tenth more of it
+ROOM_RADIUS = 1.5          # phase 8: the circle's radius in the 8 m room
+S12_TRUTH_GATE_DEG = 5.0   # phase 8: first loop's S12 vs the true rotation
+_SCENES = {}               # phase 8: the room loop, rendered once
 PHASE6 = {}                # phase 6's ms/frame, printed beside phase 9's
 DEPTH_BF = 50.0            # phase 10: fx * baseline (0.1 m)
 DEPTH_FRAMES = 60          # phase 10: rendered stereo pairs
@@ -204,6 +230,13 @@ APPS_MULTI_FRAMES = 40     # phase 11c: tests/test_run_multi.py's size
 APPS_MULTI_TRACKED = 0.6   # phase 11c: tests/test_run_multi.py's gate
 APPS_RGBD_FRAMES = 24      # phase 11e
 APPS_DEPTH_FACTOR = 5000.0  # TUM's DepthMapFactor: 16-bit PNG per meter
+DIST_WORLD_TOL = 1e-4      # phase 12: world 2 vs world 1 costs, relative
+DIST_WORLD_POS_TOL = 1e-3  # phase 12: world 2 vs world 1 translations and
+#                            median landmark, metres: the float32 LM's floor
+#                            on a 100-camera map is ~1e-4 (PERF.md §6)
+BAND_TOL = 5e-3            # phase 12: banded vs dense (tests/test_partition)
+DIST_CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=50.0,
+                   width=640, height=480)   # phase 12's stereo map
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12
 N_SM = 132
@@ -616,6 +649,26 @@ def trajectory_numbers(slam, poses, R_cw, t_cw):
     idx_k = np.round(np.asarray(ts_k) * 30.0).astype(int)
     keyframes = float(ate_rmse(t_k, gt_c[idx_k], with_scale=True))
     return init, ok[init + 1:], online, exported, keyframes
+
+
+def exported_error_where(slam, R_cw, t_cw, n_seg=4):
+    """Where the exported trajectory's error lies: the RMSE of each of
+    `n_seg` equal spans of source frames and the worst frame, under the
+    one sim3 alignment of the whole exported trajectory."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.eval.ate import align_umeyama
+    gt_c = -(np.swapaxes(R_cw, -1, -2) @ t_cw[..., None])[..., 0]
+    ts, _, t_wc = slam.frame_trajectory()
+    idx = np.round(np.asarray(ts) * 30.0).astype(int)
+    s, R, t = align_umeyama(t_wc, gt_c[idx])
+    err = np.linalg.norm(s * np.asarray(t_wc, np.float64) @ R.T + t
+                         - gt_c[idx], axis=1)
+    edges = np.linspace(0, len(gt_c), n_seg + 1)
+    seg = [err[(idx >= a) & (idx < b)] for a, b in zip(edges, edges[1:])]
+    return ("/".join(f"{np.sqrt((e ** 2).mean()):.4f}" if len(e) else "none"
+                     for e in seg),
+            f"{int(idx[np.argmax(err)])}:{err.max():.4f}")
 
 
 def trajectory_gates(tag, slam, after, ate, ate_name="ATE"):
@@ -1164,7 +1217,7 @@ def run_reloc_path(torch, CH):
 # phases 8 and 9: loop closing
 # ---------------------------------------------------------------------------
 def loop_closer_config():
-    """tests/test_loop_reloc.py's loop-closer settings."""
+    """tests/test_loop_reloc.py's loop-closer settings (the orbit's)."""
     from ar_orbslam2_tpu_torch.loop.loop_closing import LoopCloserConfig
     return LoopCloserConfig(min_kf_gap=8, consistency_threshold=1)
 
@@ -1390,30 +1443,32 @@ def run_loop_orbit(torch, CH, loops):
     return closed, ate, launches
 
 
-def plane_loop(cam):
-    """Phase 8's scene: the camera translates around a circle of radius 1
-    over the textured plane, its view tilted 0.35 rad from the plane's
-    normal (facing the plane squarely, a wrong Sim3 gets through:
-    ROADMAP.md §3), and goes on over the first tenth of the circle again.
-    Every view shares some texture with every other, so tracking re-binds
-    the start once the circle nears it, and a loop can only close on the
-    keyframes before that, three quarters of a turn round, at its gates:
-    the legs are marginal, the async one most (ROADMAP.md §3; the scenes
-    tried in its place, PERF.md §6). `[loop-*-attempts]` prints every
-    attempt against its gates."""
+def room_loop(cam):
+    """Phase 8's scene: the camera walks 1.1 turns of a circle of radius
+    1.5 m in the middle of an 8 m square room, level, looking radially
+    outward at walls that each carry their own texture
+    (synthetic.render_room_loop). Views more than about 90 degrees apart
+    share nothing, so tracking cannot re-bind the start before the
+    revisit, which sees frame 0's wall from frame 0's orientation; the
+    corners make the scene non-planar. At radius 1 m the walls are 3 m
+    away and the camera mostly turns: its translation is weakly observed,
+    the keyframe ATE is noise that a loop cannot remove, and S12 came out
+    1-5 degrees off (PERF.md §6). Rendered once (about 20 s on the host)
+    and shared by the three legs."""
     from ar_orbslam2_tpu_torch.data import synthetic
-    return synthetic.render_plane_loop(cam, n_frames=LOOP_IMAGES,
-                                       radius=1.0, tilt=0.35,
-                                       turns=LOOP_TURNS)
+    if "room" not in _SCENES:
+        _SCENES["room"] = synthetic.render_room_loop(
+            cam, n_frames=LOOP_IMAGES, turns=LOOP_TURNS, radius=ROOM_RADIUS)
+    return _SCENES["room"]
 
 
-def plane_loop_ate_without_loops(torch, CH):
-    """The rendered plane loop through SlamConfig(enable_loop_closing=
-    False): (keyframe ATE, exported ATE, kernel launches)."""
+def room_loop_ate_without_loops(torch, CH):
+    """The room loop through SlamConfig(enable_loop_closing=False):
+    (keyframe ATE, exported ATE, kernel launches)."""
     from ar_orbslam2_tpu_torch.core.camera import Camera
     from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
     cam = Camera(**CAM_KW)
-    imgs, R_cw, t_cw = plane_loop(cam)
+    imgs, R_cw, t_cw = room_loop(cam)
     slam = SlamSystem(cam, SlamConfig(enable_loop_closing=False),
                       device="cuda")
     CH.fused_windowed_top2.launches = 0
@@ -1427,7 +1482,7 @@ def plane_loop_ate_without_loops(torch, CH):
 
 
 def run_loop_images(torch, CH, async_mapping):
-    """The rendered plane loop at full width through precompile() and
+    """The room loop at full width through precompile() and
     track_monocular_batch(chunk=8): SlamConfig() (the loop closes inline)
     or SlamConfig(async_mapping=True) (on the mapping worker, the global BA
     on its own stream). Returns (kernel launches of the run, keyframe ATE,
@@ -1437,11 +1492,10 @@ def run_loop_images(torch, CH, async_mapping):
 
     tag = "loop-async" if async_mapping else "loop-sync"
     cam = Camera(**CAM_KW)
-    imgs, R_cw, t_cw = plane_loop(cam)
+    imgs, R_cw, t_cw = room_loop(cam)
     slam = SlamSystem(cam, SlamConfig(async_mapping=async_mapping),
                       device="cuda")
     t, lc = slam.tracking, slam.tracking.loop_closer
-    lc.cfg = loop_closer_config()
     t0 = time.perf_counter()
     slam.precompile()
     torch.cuda.synchronize()
@@ -1472,6 +1526,8 @@ def run_loop_images(torch, CH, async_mapping):
     for a, b in zip(collected, collected[1:]):
         (busy if watch.in_flight(b) else calm).append((b - a) * 1e3 / CHUNK)
     tracked = sum(p is not None for p in poses)
+    points = [r["n_inliers"] for r in t.metrics if r["state"] == "OK"]
+    exp_spans, exp_worst = exported_error_where(slam, R_cw, t_cw)
     phase(tag, frames=len(imgs), precompile_s=f"{warm_s:.2f}",
           tracked=tracked, state=t.state, resets=t.n_resets,
           keyframes=slam.store.n_keyframes(),
@@ -1481,6 +1537,9 @@ def run_loop_images(torch, CH, async_mapping):
           gba_launched=lc.gba.n_launched, gba_applied=lc.gba.n_applied,
           gba_aborted=lc.gba.n_aborted,
           ate_keyframes=f"{ate_kf:.5f}", ate_exported=f"{ate_exp:.5f}",
+          exported_rmse_by_quarter=exp_spans,
+          exported_worst_frame=exp_worst,
+          rescue_keyframes_dropped=t.n_rescue_dropped,
           ms_per_frame_median_calm=(f"{percentile(calm, 0.5):.2f}"
                                     if calm else "none"),
           ms_per_frame_median_loop_or_gba=(f"{percentile(busy, 0.5):.2f}"
@@ -1488,6 +1547,8 @@ def run_loop_images(torch, CH, async_mapping):
           ms_per_frame_max_loop_or_gba=(f"{max(busy):.2f}" if busy
                                         else "none"),
           chunks_calm=len(calm), chunks_loop_or_gba=len(busy),
+          tracked_points_median=percentile(points, 0.5) if points
+          else "none",
           worker_processed=None if am is None else am.n_processed,
           worker_error=None if am is None else am.error,
           captures_after_warmup=slam.captures_after_warmup,
@@ -1501,6 +1562,10 @@ def run_loop_images(torch, CH, async_mapping):
                                         "n_total") if k in st)
         for st in lc.stats_log), flush=True)
     loop_gates(tag, slam, lc, tracked, len(imgs), am)
+    if not watch.r12_vs_truth_deg[0] <= S12_TRUTH_GATE_DEG:
+        fail(f"{tag}: the first loop's S12 is "
+             f"{watch.r12_vs_truth_deg[0]:.2f} degrees from the true "
+             f"relative rotation (gate {S12_TRUTH_GATE_DEG})")
     for name in ("search_by_sim3", "topup"):
         if not watch.launches[name] or any(n != 1 for n in
                                            watch.launches[name]):
@@ -1517,9 +1582,9 @@ def run_loop_path(torch, CH):
     launches, ate_sync, exp_sync = run_loop_images(torch, CH, False)
     n, ate_async, exp_async = run_loop_images(torch, CH, True)
     launches += n
-    ate_off, exp_off, n = plane_loop_ate_without_loops(torch, CH)
+    ate_off, exp_off, n = room_loop_ate_without_loops(torch, CH)
     launches += n
-    phase("loop-ate-plane", frames=LOOP_IMAGES,
+    phase("loop-ate-room", frames=LOOP_IMAGES,
           ate_keyframes_loops_sync=f"{ate_sync:.5f}",
           ate_keyframes_loops_async=f"{ate_async:.5f}",
           ate_keyframes_no_loops=f"{ate_off:.5f}",
@@ -1527,7 +1592,7 @@ def run_loop_path(torch, CH):
           ate_exported_loops_async=f"{exp_async:.5f}",
           ate_exported_no_loops=f"{exp_off:.5f}", kernel_launches=n)
     if not max(ate_sync, ate_async) < ate_off:
-        fail(f"loop-ate-plane: keyframe ATE with loops {ate_sync:.5f} / "
+        fail(f"loop-ate-room: keyframe ATE with loops {ate_sync:.5f} / "
              f"{ate_async:.5f} is not below the ATE without {ate_off:.5f}")
     # test_loop_closure_improves_ate's noisy orbit at that test's size:
     # reported, not gated (PERF.md §6: the port's odometry leaves
@@ -2417,11 +2482,219 @@ def run_apps_path(torch, CH):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the distributed routes (parallel/) on the card
+# ---------------------------------------------------------------------------
+DIST_ROUTES = (("dense", dict(distributed=True, banded=False)),
+               ("banded", dict(distributed=True, banded=True)))
+
+
+def _dist_counted(dist):
+    """Count the collectives issued through torch.distributed in this
+    process: {name: calls}."""
+    counts = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    for name in counts:
+        real = getattr(dist, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            counts[_name] += 1
+            return _real(*a, **kw)
+        setattr(dist, name, counted)
+    return counts
+
+
+def dist_rank(rank, world, device, map_path, out):
+    """One rank of phase 12's group: 12a scaling_bench's problem at its
+    defaults (65,536 landmarks x 64 cameras x 16 observations, 10 LM
+    iterations), 12b global_bundle_adjustment's dense and banded routes on
+    the saved map (a warm-up call, then a timed call, each on a fresh
+    load), 12c multihost.selftest. Rank 0 saves the numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    from ar_orbslam2_tpu_torch.mapping import global_ba
+    from ar_orbslam2_tpu_torch.mapstore.checkpoint import load_map
+    from ar_orbslam2_tpu_torch.parallel import dist_ba, multihost
+    from ar_orbslam2_tpu_torch.parallel import scaling_bench as sb
+    counts = _dist_counted(dist)
+    mesh = dist_ba.make_mesh(device=device)
+    cam = Camera(**DIST_CAM_KW)
+    per_iter, cost, calls = sb.run_on_mesh(
+        mesh, sb.build_problem(), Camera(fx=500.0, fy=500.0, cx=320.0,
+                                         cy=240.0))
+    saved = dict(scaling_ms=per_iter * 1e3, scaling_cost=cost,
+                 scaling_calls=calls, device=str(mesh.device))
+    for name, kw in DIST_ROUTES:
+        global_ba.global_bundle_adjustment(load_map(map_path), cam,
+                                           device=device, **kw)
+        store = load_map(map_path)
+        before = dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = global_ba.global_bundle_adjustment(store, cam, device=device,
+                                               **kw)
+        saved.update({f"{name}_ms": (time.perf_counter() - t0) * 1e3,
+                      f"{name}_cost": c, f"{name}_kf_t": store.kf_t,
+                      f"{name}_mp_pos": store.mp_pos})
+        for k in counts:
+            saved[f"{name}_{k}"] = counts[k] - before[k]
+    saved["selftest"] = multihost.selftest(device=device)
+    dist.barrier()
+    if rank == 0:
+        np.savez(out, **saved)
+
+
+def run_dist_path(torch, CH):
+    """Phase 12: a stereo map of a walk round a room with its loop closed
+    (synthetic.stereo_loop_map: 100 keyframes, 16,000 landmarks, scale
+    observed) saved with the port's
+    checkpoint; global_bundle_adjustment on one device, then a group of
+    one rank on NCCL and a group of two ranks on gloo sharing the card,
+    each running dist_rank on the loaded map. Returns 0: no search runs
+    on this path."""
+    import tempfile
+
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    from ar_orbslam2_tpu_torch.data import synthetic
+    from ar_orbslam2_tpu_torch.mapping import global_ba
+    from ar_orbslam2_tpu_torch.mapstore.checkpoint import load_map, save_map
+    from ar_orbslam2_tpu_torch.parallel import partition
+    from ar_orbslam2_tpu_torch.parallel.multihost import spawn_local
+
+    cam = Camera(**DIST_CAM_KW)
+    t0 = time.perf_counter()
+    built, _ = synthetic.stereo_loop_map(cam)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
+        path = os.path.join(d, "map.npz")
+        save_map(built, path)
+        store = load_map(path)
+        n_kf = store.n_keyframes()
+        okf = store.mp_obs_kf[store.mp_valid]
+        live_obs = int(store.kf_valid[okf[okf >= 0]].sum())
+        band_w = {}
+        for n in (1, 2):          # the banded layout covers every obs of
+            # a live keyframe (tests/test_partition.py's invariant)
+            gp = global_ba.gather_global_partitioned(store, n)
+            lay = partition.banded_layout(store, n)
+            band_w[n] = lay["band_w"]
+            pos_of = np.full(store.cfg.max_keyframes, -1, np.int64)
+            pos_of[lay["kf_order"]] = np.arange(len(lay["kf_order"]))
+            for b, off in enumerate(lay["band_off"]):
+                mps = lay["shard_mp"][b][lay["shard_mp"][b] >= 0]
+                ps = pos_of[store.mp_obs_kf[mps][store.mp_obs_kf[mps] >= 0]]
+                ps = ps[ps >= 0]
+                if ((ps < off) | (ps >= off + lay["band_w"])).any():
+                    fail(f"dist: {n} shards, shard {b} observes outside "
+                         "its band")
+            if int(gp["obs_valid"].sum()) != live_obs:
+                fail(f"dist: the {n}-shard banded layout keeps "
+                     f"{int(gp['obs_valid'].sum())} of {live_obs} "
+                     "observations")
+        if not band_w[2] < n_kf:
+            fail(f"dist: the 2-shard band ({band_w[2]} cameras) is not "
+                 f"narrower than the map ({n_kf} keyframes)")
+        g = global_ba.gather_global(store)
+        cost_before = float(global_ba.dispatch_global_ba(
+            g, cam, n_iters=0, distributed=False, device="cuda")["cost"])
+        global_ba.global_bundle_adjustment(load_map(path), cam,
+                                           distributed=False, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        single_cost = global_ba.global_bundle_adjustment(
+            store, cam, distributed=False, device="cuda")
+        single_ms = (time.perf_counter() - t1) * 1e3
+        res = {}
+        for world, backend, device in ((1, "nccl", None),
+                                       (2, "gloo", "cuda:0")):
+            out = os.path.join(d, f"world{world}.npz")
+            t1 = time.perf_counter()
+            spawn_local(world, dist_rank, device, path, out,
+                        backend=backend)
+            res[world] = dict(np.load(out), spawn_s=time.perf_counter() - t1)
+    kf, mp = store.keyframe_ids(), store.map_point_ids()
+    w1, w2 = res[1], res[2]
+    phase("dist-scaling", points=65536, cams=64, opp=16, iters=10,
+          world1_nccl_ms_per_iter=f"{float(w1['scaling_ms']):.3f}",
+          world2_gloo_shared_card_ms_per_iter=
+          f"{float(w2['scaling_ms']):.3f}",
+          cost_world1=f"{float(w1['scaling_cost']):.6g}",
+          cost_world2=f"{float(w2['scaling_cost']):.6g}",
+          collectives_per_iter=f"{float(w1['scaling_calls']):g}",
+          devices=f"{w1['device']}/{w2['device']}")
+    rel = abs(float(w2["scaling_cost"]) - float(w1["scaling_cost"])) \
+        / abs(float(w1["scaling_cost"]))
+    if not rel <= DIST_WORLD_TOL:
+        fail(f"dist-scaling: world 2's cost is {rel:.2e} from world 1's")
+    n_iter = 20                     # global_bundle_adjustment's default
+    numbers = dict(keyframes=len(kf), landmarks=len(mp),
+                   band_w_2_shards=band_w[2], band_w_1_shard=band_w[1],
+                   cost_before=f"{cost_before:.6g}",
+                   single_cost=f"{single_cost:.6g}",
+                   single_ms=f"{single_ms:.2f}")
+    faults = []                     # every number is printed before a fail
+    for world, r in res.items():
+        for name, _ in DIST_ROUTES:
+            numbers[f"w{world}_{name}_ms"] = f"{float(r[name + '_ms']):.2f}"
+            numbers[f"w{world}_{name}_cost"] = \
+                f"{float(r[name + '_cost']):.6g}"
+            numbers[f"w{world}_{name}_collectives_per_iter"] = round(
+                (int(r[name + "_all_reduce"])
+                 + int(r[name + "_all_gather_into_tensor"])) / n_iter, 2)
+        dt = np.linalg.norm(r["banded_kf_t"][kf] - r["dense_kf_t"][kf],
+                            axis=1).max()
+        dp = np.median(np.linalg.norm(r["banded_mp_pos"][mp]
+                                      - r["dense_mp_pos"][mp], axis=1))
+        numbers[f"w{world}_banded_vs_dense_t"] = f"{dt:.2e}"
+        numbers[f"w{world}_banded_vs_dense_mp_median"] = f"{dp:.2e}"
+        if not (dt < BAND_TOL and dp < BAND_TOL):
+            faults.append(f"world {world} banded vs dense {dt:.2e} "
+                          f"(translations), {dp:.2e} (median landmark) >= "
+                          f"{BAND_TOL}")
+        for name, _ in DIST_ROUTES + (("single", None),):
+            c = single_cost if name == "single" else float(r[name + "_cost"])
+            if not (np.isfinite(c) and c < cost_before):
+                faults.append(f"the {name} route's cost {c} is not below "
+                              f"the cost before global BA {cost_before}")
+    for name, _ in DIST_ROUTES:
+        # world 2 vs world 1: only the order of the float32 sums differs
+        # (the map's gauge is fixed: keyframe 0 and the stereo scale); the
+        # routes at world 1 differ among themselves by as much
+        dt = np.abs(w2[name + "_kf_t"][kf] - w1[name + "_kf_t"][kf]).max()
+        dp = np.linalg.norm(w2[name + "_mp_pos"][mp]
+                            - w1[name + "_mp_pos"][mp], axis=1)
+        dc = abs(float(w2[name + "_cost"]) - float(w1[name + "_cost"])) \
+            / float(w1[name + "_cost"])
+        numbers[f"{name}_w2_vs_w1_t_cost"] = f"{dt:.2e}/{dc:.2e}"
+        numbers[f"{name}_w2_vs_w1_mp_median_p90"] = \
+            f"{np.median(dp):.2e}/{np.percentile(dp, 90):.2e}"
+        if not (dc <= DIST_WORLD_TOL
+                and max(dt, np.median(dp)) <= DIST_WORLD_POS_TOL):
+            faults.append(f"{name} world 2 vs world 1: cost {dc:.2e} "
+                          f"(tolerance {DIST_WORLD_TOL}), translations "
+                          f"{dt:.2e}, median landmark {np.median(dp):.2e} "
+                          f"(tolerance {DIST_WORLD_POS_TOL} m)")
+    phase("dist-gba", map_build_s=f"{build_s:.2f}",
+          spawn_s=f"{w1['spawn_s']:.2f}/{w2['spawn_s']:.2f}", **numbers)
+    if faults:
+        fail("dist-gba: " + "; ".join(faults))
+    if int(w1["selftest"]) != 0 or int(w2["selftest"]) != 0:
+        fail(f"dist-selftest: return codes {int(w1['selftest'])} (world 1), "
+             f"{int(w2['selftest'])} (world 2)")
+    phase("dist-selftest", world1_nccl=int(w1["selftest"]),
+          world2_gloo=int(w2["selftest"]))
+    return 0
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases of 3-11 to run alone, for "
+                    help="comma-separated phases of 3-12 to run alone, for "
                          "development (the result lines are then withheld)")
     opts = ap.parse_args()
     only = {int(x) for x in opts.phases.split(",") if x}
@@ -2482,12 +2755,14 @@ def main():
     if wanted(5):
         timed(5, lambda: run_graph_check(torch, CH))
 
-    # 6-11: the fused, chunked, pipelined main path; loss and
+    # 6-12: the fused, chunked, pipelined main path; loss and
     # relocalization on it; loop closing, inline and on the mapping worker;
-    # the configuration bench.py builds; the depth sensors; the apps
+    # the configuration bench.py builds; the depth sensors; the apps; the
+    # distributed routes
     for n, run in ((6, run_fused_path), (7, run_reloc_path),
                    (8, run_loop_path), (9, run_default_config),
-                   (10, run_depth_path), (11, run_apps_path)):
+                   (10, run_depth_path), (11, run_apps_path),
+                   (12, run_dist_path)):
         if wanted(n):
             launches += timed(n, lambda: run(torch, CH))
     phase("timing", **{f"phase{n}_s": v for n, v in seconds.items()},

@@ -500,3 +500,177 @@ def test_per_frame_step_matches_chunk(image_world):
     assert frame.frame_id == 99 and int((frame.mp >= 0).sum()) == int(
         rec["n_bound"])
     np.testing.assert_allclose(frame.R, rec["R"], atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# a chunk that loses the scene: the hard-keyframe rescue, or LOST
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def loss_world():
+    """Rendered images tracked per-frame by the port until the map holds
+    three keyframes and a velocity; the exported state, and a chunk of the
+    next two images and a uniform grey one (the scene is lost at its
+    third frame)."""
+    jcam = JCamera(*ICAM)
+    imgs, _, _ = synthetic.render_plane_sequence(jcam, n_frames=30, seed=0,
+                                                 motion=0.6)
+    slam = SlamSystem(ICAM, _cfg(), device="cpu")
+    n = 0
+    while n < len(imgs) - 2:
+        slam.track_monocular(imgs[n], timestamp=n / 30.0)
+        n += 1
+        t = slam.tracking
+        if t.state == "OK" and t.velocity is not None \
+                and slam.store.n_keyframes() >= 3:
+            break
+    assert slam.store.n_keyframes() >= 3, "the port made too few keyframes"
+    chunk = np.stack([imgs[n], imgs[n + 1], np.full_like(imgs[0], 128)])
+    return interop.export_state(slam), chunk
+
+
+def _jax_slam(state):
+    """A JAX SlamSystem holding an exported state (the direction interop
+    does not carry), with the tracking levels the chunk path reads."""
+    from ar_orbslam2_tpu.mapping.local_mapping import (
+        LocalMapperConfig as JMapperConfig)
+    from ar_orbslam2_tpu.system.slam import SlamConfig as JSlamConfig
+    from ar_orbslam2_tpu.system.slam import SlamSystem as JSlamSystem
+    jslam = JSlamSystem(JCamera(*ICAM), JSlamConfig(
+        map=JMapConfig(**MAP), tracking=JTrackingConfig(**TRK),
+        mapper=JMapperConfig(**MAPPER), use_fused_tracking=False,
+        async_mapping=False, enable_loop_closing=False,
+        enable_relocalization=False))
+    s = jslam.store
+    for name in _ARRAYS:
+        getattr(s, name)[...] = state["map"][name]
+    s.next_kf = state["next_kf"]
+    s.mp_replaced[...] = state["mp_replaced"]
+    s.mp_free = list(state["mp_free"])
+    s.bump()
+    jslam.mapper.recent = dict(state["mapper_recent"])
+    t, tr = jslam.tracking, state["tracking"]
+    t.state, t.ref_kf = tr["state"], tr["ref_kf"]
+    t.last_kf_frame_id, t.velocity = tr["last_kf_frame_id"], tr["velocity"]
+    t.last_reloc_frame_id, t._inl_peak = (tr["last_reloc_frame_id"],
+                                          tr["inl_peak"])
+    jslam._next_frame_id = state["next_frame_id"]
+    return jslam
+
+
+def _lossy_chunk(loss_world, decay):
+    """Both packages' systems on the carried state, each with a fused
+    frontend rebuilt from the last frame and the tracker's decaying
+    inlier peak at `decay`, after the lossy chunk ran through both
+    frontends. Returns (port, jslam, prec, jrec, base, stamps)."""
+    state, chunk = loss_world
+    port = interop.from_state(ICAM, _cfg(), state, device="cpu")
+    jslam = _jax_slam(state)
+    tr, lf = state["tracking"], state["last_frame"]
+    pfe = pfused.FusedFrontend(port.store, ICAM, TrackingConfig(**TRK),
+                               OrbConfig(n_features=P), "cpu")
+    jfe = jfused.FusedFrontend(jslam.store, JCamera(*ICAM),
+                               JTrackingConfig(**TRK),
+                               JOrbConfig(n_features=P))
+    for fe, t in ((pfe, port.tracking), (jfe, jslam.tracking)):
+        fe.rebuild(tr["ref_kf"], lf["mp"], lf["R"], lf["t"],
+                   velocity=tr["velocity"], prev_oct=lf["octave"])
+        t.fused = fe
+        t._inl_decay, t._low_streak = decay, 0
+    prec, jrec = pfe.step_chunk(chunk), jfe.step_chunk(chunk)
+    _assert_record_equal(prec, jrec, CHUNK_POSE_TOL)
+    assert list(np.asarray(jrec["pre_ok"]).astype(bool)) == [True, True,
+                                                             False]
+    base = state["next_frame_id"]
+    return (port, jslam, prec, jrec, base,
+            [(base + c) / 30.0 for c in range(len(chunk))])
+
+
+@pytest.mark.parametrize("decay", [200.0, 60.0], ids=["rescue", "lost"])
+def test_chunk_loss_rescues_or_goes_lost_like_jax(loss_world, decay):
+    """The fused chunk breaks at the grey frame. With a healthy decayed
+    inlier peak (>= 4x the local gate: 120) both packages run the hard-
+    keyframe rescue — a keyframe at the peak frame of the chunk, the state
+    stays OK; below it both go LOST, drop the velocity and invalidate the
+    fused state."""
+    port, jslam, prec, jrec, base, stamps = _lossy_chunk(loss_world, decay)
+    pfe, jfe = port.tracking.fused, jslam.tracking.fused
+    n_kf = port.store.n_keyframes()
+    got = [t.track_fused_chunk_async(rec, stamps, base) for t, rec in
+           ((port.tracking, prec), (jslam.tracking, jrec))]
+    assert got == [2, 2]
+    pt, jt = port.tracking, jslam.tracking
+    assert pt.state == jt.state == ("OK" if decay > 120 else "LOST")
+    assert port.store.n_keyframes() == jslam.store.n_keyframes()
+    if decay > 120:
+        new = [int(st.kf_frame_id[st.keyframe_ids()[-1]])
+               for st in (port.store, jslam.store)]
+        assert port.store.n_keyframes() == n_kf + 1
+        assert new[0] == new[1] and base <= new[0] < base + 2
+        assert pt.metrics[-1]["kf_hard"] and jt.metrics[-1]["kf_hard"]
+        assert pt.last_kf_frame_id == jt.last_kf_frame_id
+    else:
+        assert port.store.n_keyframes() == n_kf
+        assert pt.velocity is None and jt.velocity is None
+        assert not pfe.ready() and not jfe.ready()
+
+
+def test_inlier_peak_decay_rescues_a_steady_decline_jax_loses(loss_world):
+    """The port's departure on this path (tracking.INLIER_PEAK_DECAY):
+    inliers that decline 3 % a frame from 280, fed through each package's
+    own _record for 35 frames. The JAX package's peak decays 5 % a frame,
+    keeps pace with the decline and ends at the last count, below the
+    rescue's 4x gate (120), so the lossy chunk goes LOST; the port's
+    decays 1 % a frame and stays above it, so the port runs the
+    hard-keyframe rescue and stays OK. The peak since the last keyframe,
+    the chunk's records and the frames consumed stay equal."""
+    import types
+
+    from ar_orbslam2_tpu_torch.system import tracking as ptracking
+    port, jslam, prec, jrec, base, stamps = _lossy_chunk(loss_world, 0.0)
+    pt, jt = port.tracking, jslam.tracking
+    n_kf = port.store.n_keyframes()
+    counts = [int(280 * 0.97 ** k) for k in range(35)]
+    for k, n in enumerate(counts):
+        frame = types.SimpleNamespace(frame_id=base - 35 + k,
+                                      timestamp=0.0, R=None)
+        for t in (pt, jt):
+            t._record(frame, True, n)
+    assert pt._inl_peak == jt._inl_peak == 280.0
+    assert jt._inl_decay == counts[-1] < 120
+    assert pt._inl_decay == pytest.approx(
+        280.0 * ptracking.INLIER_PEAK_DECAY ** 34, rel=1e-6)
+    assert pt._inl_decay >= 120
+    got = [t.track_fused_chunk_async(rec, stamps, base) for t, rec in
+           ((pt, prec), (jt, jrec))]
+    assert got == [2, 2]
+    assert (pt.state, jt.state) == ("OK", "LOST")
+    assert port.store.n_keyframes() == n_kf + 1
+    assert jslam.store.n_keyframes() == n_kf
+    assert pt.metrics[-1]["kf_hard"]
+
+
+def test_rescue_keyframe_must_hold_on_the_live_map(loss_world):
+    """A reference fault the port repairs: the map moves under the chunk
+    (every landmark by a different 0.3 m, as a loop correction and its
+    fusion move a region), so the rescue keyframe's own bindings no
+    longer hold its pose. The JAX
+    package inserts it anyway, at the stale pose; the port drops it, gives
+    the time trigger its old base back and rebuilds the bundle on the
+    reference keyframe, still OK."""
+    port, jslam, prec, jrec, base, stamps = _lossy_chunk(loss_world, 200.0)
+    n_kf = port.store.n_keyframes()
+    before = port.tracking.last_kf_frame_id
+    live = port.store.mp_valid
+    shift = np.random.default_rng(5).normal(0, 0.3, (int(live.sum()), 3))
+    for st in (port.store, jslam.store):
+        st.mp_pos[live] += shift.astype(np.float32)
+        st.bump()
+    got = [t.track_fused_chunk_async(rec, stamps, base) for t, rec in
+           ((port.tracking, prec), (jslam.tracking, jrec))]
+    assert got == [2, 2]
+    pt = port.tracking
+    assert jslam.store.n_keyframes() == n_kf + 1        # the stale keyframe
+    assert port.store.n_keyframes() == n_kf and pt.state == "OK"
+    assert pt.n_rescue_dropped == 1
+    assert pt.last_kf_frame_id == before
+    assert pt.fused.ready() and pt.fused.anchor_kf == pt.ref_kf

@@ -398,70 +398,46 @@ def test_worker_hands_keyframes_to_the_loop_closer():
     assert am.n_processed == 3 and am.error is None
 
 
-def test_render_plane_loop_revisits_its_start():
-    """chip_smoke.py's loop scene: the camera goes once around a circle,
-    keeps one (tilted) viewing direction, and never leaves the plane."""
+def test_render_room_loop_revisits_its_start_looking_outward():
+    """chip_smoke.py phase 8's scene: the camera walks 1.1 turns of a
+    circle in a textured room, level, its optical axis radially outward;
+    after one turn it is back in the first pose and sees the first image
+    again (but for the sensor noise), while a quarter turn on it sees
+    other walls."""
     from ar_orbslam2_tpu_torch.data import synthetic as tsyn
     cam = Camera(fx=125.0, fy=125.0, cx=80.0, cy=60.0, width=160, height=120)
-    imgs, R, t = tsyn.render_plane_loop(cam, n_frames=24, radius=1.0,
-                                        tilt=0.35, tex_size=512)
-    assert imgs.shape == (24, 120, 160) and imgs.dtype == np.uint8
+    n = 23                                   # 18 degrees a frame
+    imgs, R, t = tsyn.render_room_loop(cam, n_frames=n, tex_size=256)
+    assert imgs.shape == (n, 120, 160) and imgs.dtype == np.uint8
+    c = -(np.swapaxes(R, -1, -2) @ t[..., None])[..., 0]
+    a = 2 * np.pi * 1.1 * np.arange(n) / (n - 1)
+    np.testing.assert_allclose(c, np.c_[1.5 * np.cos(a), 1.5 * np.sin(a),
+                                        np.full(n, 1.5)], atol=1e-5)
+    np.testing.assert_allclose(R[:, 2, :], np.c_[np.cos(a), np.sin(a),
+                                                 np.zeros(n)], atol=1e-6)
+    np.testing.assert_allclose(R[20], R[0], atol=1e-5)  # one turn: frame 20
+    diff = [np.abs(imgs[k].astype(int) - imgs[0]).mean() for k in (20, 5)]
+    assert diff[0] < 3.0 < 20.0 < diff[1]
+    assert (imgs > 0).mean() > 0.99                     # walls everywhere
+
+
+def test_render_plane_loop_revisits_its_start():
+    """chip_smoke.py phase 10's stereo plane loop: the camera goes once
+    around a circle, keeps one (tilted) viewing direction, never leaves
+    the plane, and the right image is the left camera moved by the
+    baseline along its x axis."""
+    from ar_orbslam2_tpu_torch.data import synthetic as tsyn
+    cam = Camera(fx=125.0, fy=125.0, cx=80.0, cy=60.0, width=160, height=120,
+                 bf=12.5)
+    left, right, R, t = tsyn.render_stereo_plane_loop(
+        cam, n_frames=24, radius=1.0, tilt=0.35, tex_size=512)
+    assert left.shape == right.shape == (24, 120, 160)
+    assert left.dtype == right.dtype == np.uint8
     c = -(np.swapaxes(R, -1, -2) @ t[..., None])[..., 0]
     assert np.linalg.norm(c[-1] - c[0]) < 0.01          # the loop
     assert np.linalg.norm(c[12] - c[0]) > 1.9           # half a turn away
     np.testing.assert_allclose(R, np.broadcast_to(R[0], R.shape), atol=1e-6)
     # tilted 0.35 rad from the plane's normal (world +z)
     assert abs(np.arccos(R[0][2, 2]) - 0.35) < 1e-5
-    assert (imgs > 0).mean() > 0.99                     # no border in view
-
-
-def test_render_plane_loop_outward_leans_away_from_the_centre():
-    """chip_smoke.py phase 8's loop scene: the view leans 0.35 rad away
-    from the circle's centre, turning with the camera, never leaves the
-    plane, and the end of the circle comes back to the start's pose."""
-    from ar_orbslam2_tpu_torch.data import synthetic as tsyn
-    cam = Camera(fx=125.0, fy=125.0, cx=80.0, cy=60.0, width=160, height=120)
-    n = 24
-    imgs, R, t = tsyn.render_plane_loop(cam, n_frames=n, radius=1.0,
-                                        tilt=0.35, tex_size=512,
-                                        outward=True)
-    c = -(np.swapaxes(R, -1, -2) @ t[..., None])[..., 0]
-    assert np.linalg.norm(c[-1] - c[0]) < 0.01          # the loop
-    np.testing.assert_allclose(R[-1], R[0], atol=1e-2)  # ... in one pose
-    axis = R[:, 2, :]                                   # optical axes, world
-    np.testing.assert_allclose(np.arccos(axis[:, 2]), 0.35, atol=1e-5)
-    a = 2 * np.pi * 0.999 * np.arange(n) / (n - 1)
-    lean = np.arctan2(axis[:, 1], axis[:, 0])
-    np.testing.assert_allclose(np.angle(np.exp(1j * (lean - a))), 0.0,
-                               atol=1e-5)               # away from (0, 0)
-    assert (imgs > 0).mean() > 0.99                     # no border in view
-
-
-def test_render_plane_loop_relief_draws_block_tops_over_the_plane():
-    """eval/loop_attempts.py --relief: the blocks' tops cover part of each
-    view, on the flat scene's camera path, and never leave the plane."""
-    from ar_orbslam2_tpu_torch.data import synthetic as tsyn
-    cam = Camera(fx=125.0, fy=125.0, cx=80.0, cy=60.0, width=160, height=120)
-    kw = dict(n_frames=6, radius=1.0, tilt=0.35, tex_size=512, outward=True)
-    flat, R, t = tsyn.render_plane_loop(cam, **kw)
-    relief, R2, t2 = tsyn.render_plane_loop(cam, relief=True, **kw)
-    np.testing.assert_array_equal(R, R2)
-    np.testing.assert_array_equal(t, t2)
-    changed = (flat != relief).mean(axis=(1, 2))
-    assert (changed > 0.05).all() and (changed < 0.9).all()
-    assert (relief > 0).mean() > 0.99
-
-
-def test_loop_angles_slow_the_arc_before_the_revisit():
-    """eval/loop_attempts.py --slow-arc: 0.9 degrees a frame, three times
-    slower over 260-340 degrees, ramps between, 1.1 turns in all."""
-    from ar_orbslam2_tpu_torch.data import synthetic as tsyn
-    a = np.degrees(tsyn.loop_angles())
-    step = np.diff(a)
-    assert a[0] == 0.0 and 395.1 < a[-1] <= 396.0
-    assert (step > 0).all()
-    np.testing.assert_allclose(step[a[:-1] < 245.0], 0.9, atol=1e-12)
-    np.testing.assert_allclose(step[(a[:-1] >= 260.0) & (a[:-1] <= 340.0)],
-                               0.3, atol=1e-12)
-    np.testing.assert_allclose(step[a[:-1] > 355.0], 0.9, atol=1e-12)
-    assert len(a) == 652
+    assert (left > 0).mean() > 0.99 and (right > 0).mean() > 0.99
+    assert 3.0 < np.abs(left.astype(int) - right).mean() < 60.0

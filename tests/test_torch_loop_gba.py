@@ -1,6 +1,7 @@
 """Global bundle adjustment and the vocabulary training of the port's
 loop-closing slice against the JAX package on the CPU: the full-map gather
-and run, the background GBA protocol (its three cases in
+and run, its distributed dense and banded routes (gloo ranks against the
+JAX package's 8-device mesh), the background GBA protocol (its three cases in
 tests/test_background_gba.py: poll applies, abort drops, propagation to
 keyframes made during the BA), and the k-medians codebook.
 
@@ -99,14 +100,113 @@ def test_gather_global_and_global_ba_match_jax():
     assert ts.version == js.version
 
 
-def test_multi_device_global_ba_routes_raise():
+# ---------------------------------------------------------------------------
+# the multi-device routes: dense and banded distributed global BA
+# ---------------------------------------------------------------------------
+ROUTES = {"dense": dict(distributed=True, banded=False),
+          "banded": dict(distributed=True, banded=True)}
+
+
+@pytest.fixture(scope="module")
+def dist_routes(tmp_path_factory):
+    """tests/test_torch_partition.py's chain map through both distributed
+    routes: the port at world 4 (gloo ranks in CPU processes, each loading
+    the saved map), the JAX package on its 8-device mesh. Returns
+    {route: (port (kf_t, mp_pos, cost), JAX (kf_t, mp_pos, cost))} and
+    the live keyframe and landmark ids."""
+    from ar_orbslam2_tpu_torch.mapstore.checkpoint import save_map
+    from ar_orbslam2_tpu_torch.parallel.multihost import spawn_local
+    from test_torch_partition import CAM_KW, chain_maps
+
+    import torch_dist_workers as W
+    d = tmp_path_factory.mktemp("dist_gba")
+    (js, ts), _ = chain_maps()
+    save_map(ts, str(d / "map.npz"))
+    spawn_local(4, W.gba_rank, str(d / "map.npz"), CAM_KW,
+                list(ROUTES.values()), 12, str(d / "out.npz"))
+    got = np.load(d / "out.npz")
+    jcam = JCamera(**{k: CAM_KW[k] for k in ("fx", "fy", "cx", "cy", "bf")})
+    out = {}
+    for i, (name, kw) in enumerate(ROUTES.items()):
+        (jc, _), _ = chain_maps()
+        cost = JGBA.global_bundle_adjustment(jc, jcam, n_iters=12, **kw)
+        out[name] = ((got[f"kf_t{i}"], got[f"mp_pos{i}"],
+                      float(got[f"cost{i}"])),
+                     (jc.kf_t.copy(), jc.mp_pos.copy(), cost))
+    return out, ts.keyframe_ids(), ts.map_point_ids()
+
+
+def test_dist_routes_dense_and_banded_agree_at_world4(dist_routes):
+    """tests/test_partition.py::test_banded_gba_matches_dense's gate on
+    the port: the banded exchange lands on the dense route's optimum."""
+    out, kf, mp = dist_routes
+    (t_d, p_d, _), _ = out["dense"]
+    (t_b, p_b, _), _ = out["banded"]
+    assert np.linalg.norm(t_b[kf] - t_d[kf], axis=1).max() < 5e-3
+    assert np.median(np.linalg.norm(p_b[mp] - p_d[mp], axis=1)) < 5e-3
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_dist_route_matches_jax_8_device_mesh(dist_routes, route):
+    out, kf, mp = dist_routes
+    (t, p, cost), (jt, jp, jcost) = out[route]
+    np.testing.assert_allclose(cost, jcost, rtol=1e-3)
+    _close(t[kf], jt[kf], 2e-3)
+    _close(p[mp], jp[mp], 2e-2)
+
+
+def test_distributed_route_without_a_group_raises():
     (_, ts), _, _ = _build_maps()
-    for kw in (dict(distributed=True), dict(banded=True)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    before = ts.mp_pos.copy()
+    for kw in ROUTES.values():
+        with pytest.raises(RuntimeError, match="no torch.distributed"):
             TGBA.global_bundle_adjustment(ts, CAM, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no torch.distributed"):
         TGBA.dispatch_global_ba(TGBA.gather_global(ts), CAM,
                                 distributed=True, device="cpu")
+    np.testing.assert_array_equal(ts.mp_pos, before)
+
+
+def test_rank_local_global_ba_stays_on_its_rank(tmp_path):
+    """In a group of two gloo ranks, a loop closed by rank 0 alone: the
+    background BA and the loop closer's inline and background BA must not
+    take the distributed route (its peers would never join the
+    collectives), and land where the single-device BA does."""
+    from ar_orbslam2_tpu_torch.mapstore.checkpoint import load_map, save_map
+    from ar_orbslam2_tpu_torch.parallel.multihost import spawn_local
+
+    import torch_dist_workers as W
+    (_, ts), _, _ = _build_maps()
+    path, out = str(tmp_path / "map.npz"), str(tmp_path / "out.npz")
+    save_map(ts, path)
+    spawn_local(2, W.rank_local_gba_rank, path,
+                dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640,
+                     height=480), out)
+    got = np.load(out)
+    assert bool(got["bg_applied"])
+    ref = load_map(path)
+    TGBA.global_bundle_adjustment(ref, CAM, distributed=False, device="cpu")
+    for key in ("bg_kf_t", "lc0_kf_t", "lc1_kf_t"):
+        _close(got[key][:5], ref.kf_t[:5], 1e-5)
+    assert np.abs(ref.kf_t[1:5] - ts.kf_t[1:5]).max() > 1e-4   # BA moved
+
+
+@pytest.mark.parametrize("entry", ["global_bundle_adjustment",
+                                   "dispatch_global_ba", "train_codebook"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """device=None means the GPU (core.device.resolve_device): without
+    one these entry points raise rather than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (_, ts), _, _ = _build_maps()
+    call = {"global_bundle_adjustment":
+            lambda: TGBA.global_bundle_adjustment(ts, CAM),
+            "dispatch_global_ba":
+            lambda: TGBA.dispatch_global_ba(TGBA.gather_global(ts), CAM),
+            "train_codebook":
+            lambda: TV.train_codebook(np.zeros((70, 256), np.uint8),
+                                      n_words=64)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_background_gba_poll_applies_and_matches_jax():

@@ -2,7 +2,9 @@
 
 tests/conftest.py imports jax into the test process, so the check runs in
 a fresh interpreter: jax and ar_orbslam2_tpu are blocked at import, every
-module of ar_orbslam2_tpu_torch is imported, and no jax module may appear.
+module of ar_orbslam2_tpu_torch is imported (and chip_smoke.py, and the
+ranks of the multi-process tests, tests/torch_dist_workers.py), and no
+jax module may appear.
 """
 import os
 import subprocess
@@ -34,9 +36,12 @@ for new in ("loop.place_recognition", "estimation.pnp",
             "apps.run_dataset", "apps.run_eval", "apps.run_stream",
             "apps.run_ar", "apps.run_multi", "ar.plane", "ar.marker",
             "ar.viewer", "viz.frame_drawer", "viz.map_drawer",
-            "loop.recall_study"):
+            "loop.recall_study", "parallel.partition", "parallel.dist_ba",
+            "parallel.multihost", "parallel.scaling_bench"):
     assert "ar_orbslam2_tpu_torch." + new in names, new
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_dist_workers
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ar_orbslam2_tpu")]
 assert not bad, bad

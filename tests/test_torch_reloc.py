@@ -398,6 +398,87 @@ def test_relocalizer_matches_jax_on_a_carried_map(reloc_scene):
     assert np.abs(tf.t - jf.t).max() <= 1e-4
 
 
+def _jax_draw(key):
+    """The draw JAX's relocalize makes for each PnP, from the key it holds
+    in key["k"] (split once per PnP, as the JAX Relocalizer does)."""
+    def draw(valid):
+        key["k"], sub = jax.random.split(key["k"])
+        p = valid.astype(np.float32)
+        p = p / max(p.sum(), 1.0)
+        return torch.as_tensor(np.array(jax.random.choice(
+            sub, len(valid), (256, jpnp.MIN_SAMPLE), replace=True,
+            p=jnp.asarray(p))))
+    return draw
+
+
+@pytest.mark.parametrize("decoy", ["few_matches", "pnp_fails"])
+def test_relocalizer_walks_several_candidates_like_jax(reloc_scene, decoy,
+                                                       monkeypatch):
+    """Two candidates, the first a decoy keyframe that both packages
+    reject and walk past, the second the real one. Its 200 landmarks
+    carry random descriptors (too few matches: no PnP), or the query's
+    own descriptors at random positions (matched; the PnP finds no pose:
+    the failed-PnP branch). The JAX draw is injected; the key the JAX
+    Relocalizer ends with counts its PnP runs, which the port's draws
+    must match."""
+    from ar_orbslam2_tpu.system.frame import Frame as JFrame
+    scene = reloc_scene
+    jslam = JSlamSystem(JCAM, _jax_cfg())
+    for i in range(16):
+        jslam.track_monocular(features=_feats(scene, i),
+                              timestamp=scene.timestamps[i])
+    slam = interop.from_state(CAM, _port_cfg(), interop.export_state(jslam),
+                              device="cpu")
+    feats = _feats(scene, 5)
+    jf = JFrame(uv=feats["uv"].astype(np.float32),
+                desc_bits=feats["desc"].astype(np.uint8),
+                octave=feats["octave"].astype(np.int32),
+                valid=feats["valid"].astype(bool), frame_id=100)
+    jrel, trel = jslam.tracking.relocalizer, slam.tracking.relocalizer
+    good = jrel._candidates(jf)[0]
+
+    rng = np.random.default_rng(4)
+    n = 200
+    if decoy == "few_matches":
+        bits = (rng.random((n, 256)) < 0.5).astype(np.uint8)
+    else:
+        bits = feats["desc"][np.nonzero(feats["valid"])[0][:n]]
+    pos = rng.uniform([-3, -3, 3], [3, 3, 9], (n, 3)).astype(np.float32)
+    uv = np.zeros((512, 2), np.float32)
+    uv[:n] = rng.uniform([0, 0], [640, 480], (n, 2))
+    kp_desc = np.zeros((512, 32), np.uint8)
+    kp_desc[:n] = TH.pack_bits(bits)
+    kp_valid = np.arange(512) < n
+    for st in (jslam.store, slam.store):        # the same calls: same ids
+        k = st.add_keyframe(np.eye(3, dtype=np.float32),
+                            np.zeros(3, np.float32), uv, kp_desc,
+                            np.zeros(512, np.int32), kp_valid)
+        ids = st.add_map_points(pos, TH.pack_bits(bits), first_kf=k)
+        st.add_observations(ids, k, np.arange(n))
+    for db in (jslam.kfdb, slam.kfdb):
+        monkeypatch.setattr(db, "detect_relocalization_candidates",
+                            lambda bow, k=k: [k, good])
+
+    key = {"k": jrel._key}
+    trel.draw = _jax_draw(key)
+    tf = _frame(feats, 100)
+    n_j = jrel.relocalize(jf)
+    n_t = trel.relocalize(tf)
+    stats = trel.last_stats
+    assert n_j is not None and n_t == n_j
+    assert stats["candidates"] == [k, good] and stats["tried"] == 2
+    assert stats["kf"] == good and stats["ok"]
+    # reads: bow + scores, one match per candidate, one per PnP (few
+    # matches: the real candidate's alone; a failed PnP: two), the refine
+    # and the top-up of the one that succeeded
+    n_pnp = 1 if decoy == "few_matches" else 2
+    assert stats["syncs"] == 2 + 2 + n_pnp + 2
+    assert np.array_equal(np.asarray(key["k"]), np.asarray(jrel._key))
+    assert np.array_equal(tf.mp, jf.mp)
+    assert np.abs(tf.R - jf.R).max() <= 1e-4
+    assert np.abs(tf.t - jf.t).max() <= 1e-4
+
+
 @pytest.mark.parametrize("fused_async", [False, True])
 def test_relocalization_recovers_from_lost(reloc_scene, fused_async):
     """The JAX package's test of the same name, on the port: a forced LOST
