@@ -98,22 +98,28 @@ def fast_score_map(img_f, threshold):
     max over the 16 contiguous 9-arcs of (min over the arc of |ring -
     center|), evaluated separately for the brighter/darker polarity.
     """
-    shifted = torch.stack([torch.roll(img_f, (-int(dy), -int(dx)), (0, 1))
-                           for dy, dx in RING])
-    d_bright = shifted - img_f[None]       # >0 where ring brighter
+    # the ring pixel at offset (dy, dx) of every pixel: slices of the image
+    # padded by the ring's radius (the 3-pixel border the padding reaches
+    # is masked out below)
+    h, w = img_f.shape
+    pad = F.pad(img_f[None, None], (3, 3, 3, 3))[0, 0]
+    ring = torch.stack([pad[3 + int(dy):3 + int(dy) + h,
+                            3 + int(dx):3 + int(dx) + w] for dy, dx in RING])
+    d_bright = ring - img_f[None]          # >0 where ring brighter
     d_dark = -d_bright
 
     def arc_score(d):
-        # min over every contiguous 9-window on the circular ring axis
-        m2 = torch.minimum(d, torch.roll(d, -1, 0))
-        m4 = torch.minimum(m2, torch.roll(m2, -2, 0))
-        m8 = torch.minimum(m4, torch.roll(m4, -4, 0))
-        m9 = torch.minimum(m8, torch.roll(d, -8, 0))
+        # min over every contiguous 9-window on the circular ring axis: the
+        # ring extended by its first 8 entries, windows doubled 2, 4, 8, 9
+        e = torch.cat([d, d[:8]])
+        m2 = torch.minimum(e[:-1], e[1:])
+        m4 = torch.minimum(m2[:-2], m2[2:])
+        m8 = torch.minimum(m4[:-4], m4[4:])
+        m9 = torch.minimum(m8[:16], e[8:24])
         return m9.max(0).values            # best arc per pixel
 
     score = torch.maximum(arc_score(d_bright), arc_score(d_dark))
     corner = score > threshold
-    h, w = img_f.shape
     yy, xx = _grid(h, w, img_f.device)
     interior = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
     return torch.where(corner & interior, score, torch.zeros_like(score))

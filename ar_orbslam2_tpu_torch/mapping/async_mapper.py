@@ -86,9 +86,15 @@ class AsyncMapper:
         and the tracking thread must not block on it."""
         self._put(fn)
 
-    def join(self):
-        """Drain the queue (parity: the Shutdown thread joins)."""
-        self._q.join()
+    def join(self, timeout=None):
+        """Drain the queue (parity: the Shutdown thread joins). timeout:
+        seconds to wait for it (None: no limit); TimeoutError when the
+        worker is still busy then."""
+        with self._q.all_tasks_done:
+            if not self._q.all_tasks_done.wait_for(
+                    lambda: not self._q.unfinished_tasks, timeout):
+                raise TimeoutError(
+                    f"async mapper still busy after {timeout} s")
         if self.error is not None:
             raise RuntimeError("async mapper died") from self.error
 

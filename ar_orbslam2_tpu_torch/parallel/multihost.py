@@ -16,9 +16,11 @@ directory, so no port is bound and released before the group takes it.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import shutil
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -65,31 +67,62 @@ def global_mesh(device=None):
     return dist_ba.make_mesh(device=device)
 
 
-def _spawned(rank, world_size, store_path, backend, fn, args):
+def _spawned(rank, world_size, store_path, backend, fn, args, timeout):
     store = dist.FileStore(store_path, world_size)
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    kw = {} if timeout is None else dict(
+        timeout=datetime.timedelta(seconds=timeout))
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size, **kw)
     try:
         fn(rank, world_size, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn_local(world_size, fn, *args, backend="gloo"):
+def spawn_local(world_size, fn, *args, backend="gloo", timeout=None):
     """Run ``fn(rank, world_size, *args)`` in `world_size` new processes
     that form one group through a FileStore in a temporary directory
     (removed afterwards), and wait for all of them. `fn` must be
     importable by name (a module-level function). Raises if a process
-    fails."""
+    fails.
+
+    timeout: seconds to wait for the ranks, start-up included (None: no
+    limit). It also bounds each rank's wait for its peers in the group's
+    set-up and collectives. When it passes, the ranks still running are
+    terminated and TimeoutError names them."""
     import torch.multiprocessing as mp
     root = tempfile.mkdtemp(prefix="torch_group_")
     try:
-        mp.spawn(_spawned, nprocs=world_size, join=True, args=(
-            world_size, os.path.join(root, "store"), backend, fn, args))
+        ctx = mp.spawn(_spawned, nprocs=world_size, join=False, args=(
+            world_size, os.path.join(root, "store"), backend, fn, args,
+            timeout))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None
+                           else max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                late = [r for r, p in enumerate(ctx.processes)
+                        if p.is_alive()]
+                _stop(ctx.processes)
+                raise TimeoutError(
+                    ", ".join(f"rank {r}" for r in late)
+                    + f" did not finish within {timeout} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _stop(processes, grace_s=5.0):
+    """Terminate the processes still running, and kill those that
+    outlive `grace_s`."""
+    for p in processes:
+        if p.is_alive():
+            p.terminate()
+    for p in processes:
+        p.join(grace_s)
+        if p.is_alive():
+            p.kill()
+            p.join()
 
 
 def selftest(device=None) -> int:

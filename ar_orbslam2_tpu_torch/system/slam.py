@@ -244,11 +244,15 @@ class SlamSystem:
         Initialization and keyframe events fall back to the per-frame
         paths. Returns a list of Tcw (4x4) or None.
 
-        With async mapping the chunks are double-buffered: the next
-        chunk is dispatched BEFORE the previous one's records are read
-        back, so the device never idles between chunks and keyframe
-        events ride the pipeline instead of stalling it. Without a fused
-        frontend every frame takes the per-frame path."""
+        With async mapping the chunks are double-buffered while the
+        mapping worker's queue holds a keyframe: the next chunk is
+        dispatched BEFORE the previous one's records are read back, so the
+        device never idles between chunks. When the pending chunk may
+        bring a keyframe, its records are read first, and a soft keyframe's
+        local mapping finishes on the worker before the next chunk is
+        dispatched against the map that holds it (loop closing stays on
+        the worker). Without a fused frontend every frame takes the
+        per-frame path."""
         t = self.tracking
         fe = t.fused
         n = len(images)
@@ -293,7 +297,12 @@ class SlamSystem:
         """Double-buffered chunk pipeline (async-mapping mode).
 
         Invariants: at most one chunk in flight beyond the one being
-        processed; frame-id assignment advances at dispatch and REWINDS
+        processed, and none while the one being processed may bring a
+        keyframe; a chunk is never dispatched before the local mapping of
+        a soft keyframe decided in the chunks before it has finished (a
+        chunk that rode the map without it drifted 0.4 m against the room
+        loop's young map, where the keyframe ATE was 7 mm); frame-id
+        assignment advances at dispatch and REWINDS
         on a mid-chunk tracking failure (the prefetched chunk's results
         are discarded and its frames re-enter the per-frame path); the
         device bundle refresh never drains the pipeline — it chains after
@@ -343,12 +352,15 @@ class SlamSystem:
                 i += 1
                 continue
 
-            # prefetch the next chunk; refresh BEFORE the prefetch dispatch
-            # whenever the mapper published: refreshing only after record
-            # processing makes the new map effective TWO chunks late, and a
-            # fast sweep outruns it
+            # prefetch the next chunk while the pending one cannot bring a
+            # keyframe (the worker's queue holds one already): a chunk
+            # dispatched before a keyframe it follows is mapped rides a map
+            # without it, and tracked against a young map it drifts
+            # decimetres in 8 frames. Refresh BEFORE the prefetch dispatch
+            # whenever the mapper published.
             nxt = None
-            if n - i >= chunk:
+            kf_possible = not t.only_tracking and t.async_mapper.queue_idle()
+            if n - i >= chunk and not kf_possible:
                 refresh_if_stale()
                 nxt = dispatch(i)
                 i += chunk
@@ -360,6 +372,9 @@ class SlamSystem:
             epoch0 = fe._bundle_epoch
             consumed = t.track_fused_chunk_async(
                 recs, ts_p, base_p, ms_per_frame=ms)
+            # a soft keyframe of this chunk: the next chunk tracks against
+            # the map with it (its loop closing stays on the worker)
+            t.wait_for_keyframe_mapping()
             poses.extend(self._consumed_poses(consumed))
             if consumed < cnt_p:
                 # tracking failed mid-chunk (or a hard keyframe broke it):

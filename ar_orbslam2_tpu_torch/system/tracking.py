@@ -42,6 +42,7 @@ package with relocalization disabled.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 
@@ -229,6 +230,10 @@ class Tracking:
         self._low_streak = 0      # consecutive sub-threshold frames
         self._fused_prev_pose = None
         self._dbg_submit_ms = None
+        # set once the worker has mapped the last SOFT keyframe (insert,
+        # triangulation, fusion, local BA); the pipelined caller waits on
+        # it before it dispatches the next chunk
+        self.kf_mapped: threading.Event | None = None
         self.n_resets = 0
         self.n_rescue_dropped = 0  # rescue keyframes that did not hold
         self._dbg: dict = {}     # per-frame stage diagnostics -> metrics
@@ -482,8 +487,10 @@ class Tracking:
 
         Keyframe handling has two tiers:
           * SOFT trigger (NeedNewKeyFrame fires while inliers are still
-            healthy): the whole event runs on the worker and the device
-            bundle is swapped in by the pipelined refresh.
+            healthy): the whole event runs on the worker; ``kf_mapped``
+            is set once its local mapping is done, and the pipelined
+            caller waits for it before it dispatches the next chunk,
+            against a bundle refreshed from that map.
           * HARD decline (inliers fall below 0.45x the decayed peak — the
             scene is outrunning the frozen bundle): the chunk BREAKS at
             that frame, the KF is inserted, triangulate + fuse run to
@@ -599,9 +606,10 @@ class Tracking:
                 ts_kf = timestamps[kf_at]
                 fid_kf = base_frame_id + kf_at
                 t_sub = time.perf_counter()
-                am.submit_task(lambda: self._deferred_kf_insert(
-                    snaps, kf_at, ts_kf, fid_kf, ids, anchor_info,
-                    done=done, kf_fid_before=kf_fid_before))
+                mapped = self.kf_mapped = threading.Event()
+                am.submit_task(lambda: self._deferred_kf_event(
+                    snaps, kf_at, ts_kf, fid_kf, ids, anchor_info, done,
+                    kf_fid_before, mapped))
                 self._dbg_submit_ms = round(
                     (time.perf_counter() - t_sub) * 1e3, 2)
             else:
@@ -708,6 +716,37 @@ class Tracking:
             self.mapper.cull_keyframes(kf)
         self._close_loops(kf)
         return None
+
+    def _deferred_kf_event(self, snaps, j, timestamp, frame_id, bundle_ids,
+                           anchor_info, done, kf_fid_before, mapped):
+        """Worker-side SOFT keyframe event: the insert, then the keyframe's
+        local mapping (triangulation, fusion, local BA, culling); `mapped`
+        is set after it, before the loop closer takes the keyframe, so the
+        tracker can refresh its bundle from a map that holds the keyframe
+        without waiting for loop closing. Returns None: the worker has
+        nothing left to run for it."""
+        kf = None
+        try:
+            kf = self._deferred_kf_insert(snaps, j, timestamp, frame_id,
+                                          bundle_ids, anchor_info, done=done,
+                                          kf_fid_before=kf_fid_before)
+            if kf is not None:
+                self.mapper.process_keyframe(kf)
+        finally:
+            mapped.set()
+        if kf is not None:
+            self._close_loops(kf)
+        return None
+
+    def wait_for_keyframe_mapping(self):
+        """Block until the worker has mapped the last soft keyframe (no-op
+        when none is pending); raises if the worker died first (it skips
+        the work queued after an error)."""
+        mapped, self.kf_mapped = self.kf_mapped, None
+        am = self.async_mapper
+        while mapped is not None and not mapped.wait(0.05):
+            if am.error is not None:
+                raise RuntimeError("async mapper died") from am.error
 
     def _deferred_kf_insert(self, snaps, j, timestamp, frame_id,
                             bundle_ids, anchor_info, done=None,

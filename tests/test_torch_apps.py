@@ -4,14 +4,11 @@ written as a TUM directory with its ground truth.
 
 - run_eval tum exits 0 under a 0.05 m gate (PERF.md §2's limit) and
   writes both trajectories;
-- run_ar anchors a cube on the rendered plane (its normal within 10
-  degrees of the plane's, both in the camera's frame) and every overlay
-  draws the tracked dots of the frame just tracked: each dot is a keypoint
-  of that image (to 1e-4 px), where the JAX app draws the last frame of
-  the per-frame path, which lags by one more frame per fused frame (shown
-  on the JAX package itself);
-- run_stream tracks an image directory with the overlay and its metrics;
 - recall_study.run_study equals the JAX package's exactly.
+
+run_ar and run_stream on the same directory are in
+tests/test_torch_apps_ar.py (split so that the two run on two test
+workers).
 """
 import os
 
@@ -20,38 +17,39 @@ import pytest
 import torch
 
 from ar_orbslam2_tpu.loop import recall_study as jrecall
-from ar_orbslam2_tpu_torch.apps import run_ar, run_eval, run_stream
+from ar_orbslam2_tpu_torch.apps import run_eval
 from ar_orbslam2_tpu_torch.core.camera import Camera
 from ar_orbslam2_tpu_torch.data import datasets, synthetic
-from ar_orbslam2_tpu_torch.frontend.orb import OrbConfig, extract_orb
 from ar_orbslam2_tpu_torch.loop import recall_study
 from ar_orbslam2_tpu_torch.utils.config import write_settings
 
 N_FRAMES = 32
 ATE_GATE = 0.05
-NORMAL_GATE_DEG = 10.0
-DOT_TOL_PX = 1e-4
-STALE_FRAMES = 8
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _few_torch_threads():
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 
 
-@pytest.fixture(scope="module")
-def seq(tmp_path_factory):
-    root = tmp_path_factory.mktemp("tum")
+def tum_sequence(root):
+    """The rendered plane sweep written under `root` as a TUM directory
+    with its settings: (directory, images, R_cw, t_cw)."""
     imgs, R_cw, t_cw = synthetic.render_plane_sequence(
         CAM, n_frames=N_FRAMES, seed=0, motion=0.25)
     d = str(root / "seq")
     datasets.write_tum_sequence(d, imgs, R_cw, t_cw)
     write_settings(os.path.join(d, "settings.yaml"), CAM, n_features=500)
     return d, imgs, R_cw, t_cw
+
+
+@pytest.fixture(scope="module")
+def seq(tmp_path_factory):
+    return tum_sequence(tmp_path_factory.mktemp("tum"))
 
 
 def test_run_eval_tum_passes_its_gate(seq, tmp_path):
@@ -74,86 +72,6 @@ def test_run_eval_tum_passes_its_gate(seq, tmp_path):
                        "--gate-ate", "0.0", "--out", out, "--device", "cpu",
                        "--no-precompile", "--max-frames", "16"])
     assert e.value.code == 1
-
-
-def test_run_ar_anchors_a_cube_and_draws_the_current_frame(seq, tmp_path):
-    d, imgs, R_cw, t_cw = seq
-    at = 20
-    out = run_ar.main([os.path.join(d, "settings.yaml"), d, "--out",
-                       str(tmp_path / "ar"), "--add-cube-at", str(at),
-                       "--device", "cpu"])
-    slam, viewer = out["slam"], out["viewer"]
-    assert out["cube_frame"] == at and len(viewer.cubes) == 1
-    # the plane's normal in the camera at the cube's frame: estimated
-    # (R_cw . n) against the rendered plane's (z = 3, facing the camera)
-    rec = next(r for r in slam.tracking.metrics if r["frame_id"] == at)
-    n_est = rec["R"] @ viewer.plane.normal
-    n_true = R_cw[at] @ np.array([0.0, 0.0, -1.0])
-    angle = np.degrees(np.arccos(np.clip(n_est @ n_true, -1.0, 1.0)))
-    assert angle < NORMAL_GATE_DEG, angle
-    pngs = sorted(os.listdir(tmp_path / "ar"))
-    assert len(pngs) == N_FRAMES
-    import cv2
-    assert cv2.imread(str(tmp_path / "ar" / pngs[-1])).shape == (502, 640, 3)
-    # the dots of overlay i are keypoints of image i
-    assert out["drawn"] == list(range(N_FRAMES))
-    fused = [r["frame_id"] for r in slam.tracking.metrics if r.get("fused")]
-    assert len(fused) >= N_FRAMES // 2
-    cfg = OrbConfig(n_features=slam.cfg.tracking.max_kp)
-
-    def keypoints(i):
-        f = extract_orb(torch.as_tensor(imgs[i]), cfg)
-        return f["uv"][f["valid"]].numpy()
-
-    for i in fused[::4]:
-        dots = out["dots"][i]
-        assert len(dots) >= 50
-        gap = np.abs(dots[:, None, :] - keypoints(i)[None]).max(-1).min(1)
-        assert gap.max() <= DOT_TOL_PX, (i, gap.max())
-
-
-def test_jax_run_ar_reads_a_stale_frame(seq):
-    """The reference fault the port's run_ar repairs: the JAX app reads
-    slam.last_frame after track_monocular, and the fused path never sets
-    it, so from the first fused frame on it lags one more frame each
-    frame."""
-    from ar_orbslam2_tpu.apps.common import build_system as jax_build
-    from ar_orbslam2_tpu.utils.config import Settings as JSettings
-    from ar_orbslam2_tpu.core.camera import Camera as JCamera
-    _, imgs, _, _ = seq
-    cam = JCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640,
-                  height=480)
-    slam = jax_build(JSettings(camera=cam, n_features=500))
-    lags, fused = [], []
-    for i in range(STALE_FRAMES):
-        slam.track_monocular(imgs[i], timestamp=i / 30.0)
-        fused.append(bool(slam.tracking.metrics[-1].get("fused")))
-        lags.append(i - int(round(slam.last_frame.timestamp * 30.0)))
-    slam.shutdown()
-    first = fused.index(True)
-    assert all(fused[first:])
-    assert lags[:first] == [0] * first
-    assert lags[first:] == list(range(1, STALE_FRAMES - first + 1)), lags
-
-
-def test_run_stream_tracks_an_image_glob(seq, tmp_path):
-    import json
-    d, imgs, _, _ = seq
-    n = 8
-    frames = list(run_stream.frame_source(os.path.join(d, "rgb", "*.png")))
-    assert len(frames) == N_FRAMES
-    np.testing.assert_array_equal(frames[0], imgs[0])
-    slam = run_stream.main([os.path.join(d, "settings.yaml"),
-                            os.path.join(d, "rgb"), "--ar", "--out",
-                            str(tmp_path / "ov"), "--max-frames", str(n),
-                            "--metrics", str(tmp_path / "m.jsonl"),
-                            "--save-traj", str(tmp_path / "t.txt"),
-                            "--device", "cpu"])
-    assert slam.tracking.state == "OK" and len(slam.tracking.metrics) == n
-    rows = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
-    assert [r["frame_id"] for r in rows] == list(range(n))
-    assert len(os.listdir(tmp_path / "ov")) == n
-    assert len(np.loadtxt(tmp_path / "t.txt", ndmin=2)) >= n - 3
 
 
 @pytest.mark.parametrize("keep,flip", [(0.4, 0.08), (0.25, 0.15)])

@@ -10,6 +10,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from ar_orbslam2_tpu.apps.common import build_system as jax_build_system
 from ar_orbslam2_tpu.data import datasets as jds
@@ -20,6 +21,17 @@ from ar_orbslam2_tpu_torch.core.camera import Camera
 from ar_orbslam2_tpu_torch.data import datasets
 from ar_orbslam2_tpu_torch.eval import trajectory
 from ar_orbslam2_tpu_torch.utils.config import load_settings, write_settings
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 TOL_TRAJ = 1e-6
 

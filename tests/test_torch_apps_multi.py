@@ -1,6 +1,7 @@
 """The port's run_multi on the CPU: two rendered sequences interleaved
 chunk by chunk through two SlamSystems (nFeatures 500: 512 padded
-keypoints; 24 frames each at 640x480).
+keypoints; 16 frames each at 640x480: two chunks of 8 each, so the
+systems alternate chunk by chunk and each runs a fused chunk).
 
 The JAX package's gates (tests/test_run_multi.py): > 60 % of each
 sequence's frames tracked, >= 2 keyframes each, two distinct stores. And
@@ -18,14 +19,14 @@ from ar_orbslam2_tpu_torch.apps.common import build_system
 from ar_orbslam2_tpu_torch.core.camera import Camera
 from ar_orbslam2_tpu_torch.utils.config import load_settings, write_settings
 
-N_FRAMES = 24
+N_FRAMES = 16
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _few_torch_threads():
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

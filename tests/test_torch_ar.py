@@ -41,7 +41,7 @@ JCAM = JCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 @pytest.fixture(scope="module", autouse=True)
 def _few_torch_threads():
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -8,6 +8,7 @@ formulas, so results differ only by operation order and library math
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ar_orbslam2_tpu.core import camera as JC
@@ -18,6 +19,16 @@ from ar_orbslam2_tpu_torch.core import camera as TC
 from ar_orbslam2_tpu_torch.core import geometry as TG
 from ar_orbslam2_tpu_torch.core import lie as TL
 from ar_orbslam2_tpu_torch.core import robust as TR
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _t(a):

@@ -19,6 +19,16 @@ from ar_orbslam2_tpu_torch.ops import cuda_hamming as CH
 from ar_orbslam2_tpu_torch.ops import hamming as TH
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _problem(n, m, ties, seed):
     """Windowed-search inputs as numpy arrays, in the argument order of
     fused_windowed_top2. ties=True repeats every keypoint (descriptor, uv,

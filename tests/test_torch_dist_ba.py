@@ -36,12 +36,14 @@ from test_torch_partition import CAM_KW, chain_maps
 import torch_dist_workers as W
 
 N_ITERS = 12
+SPAWN_LIMIT_S = 180    # each group's own time limit (a world-4 case took
+                       # 35-42 s beside five other test workers)
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _few_torch_threads():
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 
@@ -77,7 +79,8 @@ def _jax(prob, banded=False):
 
 def _port(prob, world, tmp_path):
     out = str(tmp_path / f"world{world}.npz")
-    spawn_local(world, W.dist_ba_rank, prob, CAM_KW, N_ITERS, out)
+    spawn_local(world, W.dist_ba_rank, prob, CAM_KW, N_ITERS, out,
+                timeout=SPAWN_LIMIT_S)
     return dict(np.load(out))
 
 

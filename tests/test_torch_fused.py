@@ -56,7 +56,7 @@ def _few_torch_threads():
     nothing and fight the other test workers for the cores."""
     import torch
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -18,6 +18,16 @@ from ar_orbslam2_tpu_torch.ops import hamming as TH
 from test_torch_cuda_kernel import _problem
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax(args):
     return [jnp.asarray(a) for a in args]
 

@@ -22,6 +22,17 @@ from ar_orbslam2_tpu.core.camera import Camera
 from ar_orbslam2_tpu.estimation import initializer as JI
 from ar_orbslam2_tpu_torch.estimation import initializer as TI
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 K = np.asarray(CAM.K)
 

@@ -14,6 +14,7 @@ flags differ.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ar_orbslam2_tpu.core import lie as JL
@@ -21,6 +22,17 @@ from ar_orbslam2_tpu.core.camera import Camera
 from ar_orbslam2_tpu.estimation import local_ba as JB
 from ar_orbslam2_tpu_torch.core.camera import Camera as TCamera
 from ar_orbslam2_tpu_torch.estimation import local_ba as TB
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 

@@ -33,6 +33,8 @@ from ar_orbslam2_tpu_torch.ops import hamming as TH
 
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 JCAM = JCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+SPAWN_LIMIT_S = 240    # each group's own time limit (the world-4 routes took
+                       # about 70 s beside five other test workers)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -40,7 +42,7 @@ def _few_torch_threads():
     """The port's stages are chains of small ops: more intra-op threads buy
     nothing and fight the other test workers for the cores."""
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 
@@ -123,7 +125,8 @@ def dist_routes(tmp_path_factory):
     (js, ts), _ = chain_maps()
     save_map(ts, str(d / "map.npz"))
     spawn_local(4, W.gba_rank, str(d / "map.npz"), CAM_KW,
-                list(ROUTES.values()), 12, str(d / "out.npz"))
+                list(ROUTES.values()), 12, str(d / "out.npz"),
+                timeout=SPAWN_LIMIT_S)
     got = np.load(d / "out.npz")
     jcam = JCamera(**{k: CAM_KW[k] for k in ("fx", "fy", "cx", "cy", "bf")})
     out = {}
@@ -181,7 +184,7 @@ def test_rank_local_global_ba_stays_on_its_rank(tmp_path):
     save_map(ts, path)
     spawn_local(2, W.rank_local_gba_rank, path,
                 dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640,
-                     height=480), out)
+                     height=480), out, timeout=SPAWN_LIMIT_S)
     got = np.load(out)
     assert bool(got["bg_applied"])
     ref = load_map(path)

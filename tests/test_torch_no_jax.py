@@ -10,6 +10,20 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 _CHECK = r"""
 import importlib, pkgutil, sys
 

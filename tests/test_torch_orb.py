@@ -22,6 +22,17 @@ from ar_orbslam2_tpu.data import synthetic
 from ar_orbslam2_tpu.frontend import orb as JO
 from ar_orbslam2_tpu_torch.frontend import orb as TO
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CAM = Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 JCFG = JO.OrbConfig(n_features=1024)
 TCFG = TO.OrbConfig(n_features=1024)

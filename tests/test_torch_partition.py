@@ -13,6 +13,7 @@ Every output must be exactly equal: the module is numpy on both sides.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ar_orbslam2_tpu.core import lie as JL
 from ar_orbslam2_tpu.mapping import global_ba as JGBA
@@ -23,6 +24,17 @@ from ar_orbslam2_tpu_torch.mapping import global_ba as TGBA
 from ar_orbslam2_tpu_torch.mapstore.checkpoint import _ARRAYS
 from ar_orbslam2_tpu_torch.mapstore.map import MapConfig, MapStore
 from ar_orbslam2_tpu_torch.parallel import partition as TP
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=50.0, width=640,
               height=480)

@@ -13,6 +13,7 @@ camera, 14 frames, motion 0.5, the same map/tracking/mapper sizes).
 """
 import numpy as np
 import pytest
+import torch
 
 from ar_orbslam2_tpu.core.camera import Camera as JCamera
 from ar_orbslam2_tpu.data import synthetic
@@ -31,6 +32,17 @@ from ar_orbslam2_tpu_torch.mapstore.checkpoint import _ARRAYS, load_map
 from ar_orbslam2_tpu_torch.mapstore.map import MapConfig
 from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
 from ar_orbslam2_tpu_torch.system.tracking import TrackingConfig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The port's steps are chains of tiny ops: more intra-op threads buy
+    nothing and fight the other test workers for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 SIZES = dict(map=dict(max_keyframes=64, max_map_points=20_000, max_kp=1024),
              tracking=dict(max_kp=1024, n_local_mp=2048,

@@ -45,7 +45,7 @@ def _few_torch_threads():
     """The port's stages are chains of small ops: more intra-op threads buy
     nothing and fight the other test workers for the cores."""
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -4,6 +4,8 @@ ar_orbslam2_tpu_torch.parallel.multihost.spawn_local on gloo over CPU
 processes. This module imports torch and the port only, never jax: each
 spawned rank imports it by name. Rank 0 saves what the test compares.
 """
+import time
+
 import numpy as np
 import torch
 
@@ -103,6 +105,7 @@ def rank_local_gba_rank(rank, world, map_path, cam_kw, out):
 def selftest_rank(rank, world, out_dir):
     """multihost.selftest on the CPU; every rank writes its return code."""
     from ar_orbslam2_tpu_torch.parallel import multihost
+    torch.set_num_threads(1)
     rc = multihost.selftest(device="cpu")
     with open(f"{out_dir}/rank{rank}.rc", "w") as f:
         f.write(str(rc))
@@ -112,3 +115,9 @@ def failing_rank(rank, world):
     """Rank 1 raises: spawn_local must report it."""
     if rank == 1:
         raise ValueError("rank 1 gives up")
+
+
+def stalled_rank(rank, world, seconds):
+    """Rank 1 sleeps for `seconds`: spawn_local's deadline must stop it."""
+    if rank == 1:
+        time.sleep(seconds)
