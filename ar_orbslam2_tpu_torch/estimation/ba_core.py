@@ -8,14 +8,17 @@ obs_uv (P, OPP, 2), ...
 The JAX package turned every camera-indexed access into a matmul against a
 one-hot (P, OPP, C) table, with bf16 operands for the S assembly (TPU
 gathers serialize). Here camera access is an index gather and every
-camera-indexed sum an ``index_add`` in float32: the same math without the
-one-hot table, and without the bf16 rounding of S.
+camera-indexed sum a ``core.sums.IndexSum`` in float32: the same math
+without the one-hot table and without the bf16 rounding of S, and, like
+the matmul, a sum in an order fixed by the inputs, so one problem gives
+the same bits on every run.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import lie
+from ..core.sums import IndexSum
 
 
 def ba_residuals(cam, R_all, t_all, X, oc, obs_uv, obs_uvr, stereo):
@@ -81,11 +84,22 @@ def _inv3x3(A):
     return adj * inv_det[..., None, None]
 
 
-def schur_blocks(r, Jc, Jpt, w, oc, n_cam, lam):
+def schur_sums(oc, n_cam):
+    """schur_blocks' two ordered sums for one problem's camera index oc
+    (P,OPP): into the cameras, and into (landmark, camera) pairs. oc is
+    the same in every LM iteration, so a BA plans them once."""
+    P = oc.shape[0]
+    pc = torch.arange(P, device=oc.device)[:, None] * n_cam + oc
+    return IndexSum(oc.reshape(-1), n_cam), IndexSum(pc.reshape(-1),
+                                                     P * n_cam)
+
+
+def schur_blocks(r, Jc, Jpt, w, oc, n_cam, lam, sums=None):
     """Assemble the landmark-marginalised camera system.
 
     S = Hcc - sum_p U_p V_p^T with U_p[c] = sum_{o: oc=c} W_po Hpp_p^-1 and
-    V_p[c] = sum_{o: oc=c} W_po, both built per landmark by index_add.
+    V_p[c] = sum_{o: oc=c} W_po, both built per landmark by an ordered sum.
+    sums: schur_sums(oc, n_cam), made once per problem (None: made here).
     Returns dict(S (C,C,6,6), b_s (C,6), Hpp_inv, Wb, b_p) for the camera
     solve and the landmark back-substitution.
     """
@@ -108,19 +122,17 @@ def schur_blocks(r, Jc, Jpt, w, oc, n_cam, lam):
     Jr = torch.einsum("pori,por->poi", JcW, r)             # (P,OPP,6)
     Yb = torch.einsum("poik,pk->poi", Y, b_p)              # (P,OPP,6)
 
-    flat_c = oc.reshape(-1)
-    Hcc = torch.zeros(C, 6, 6, dtype=dt, device=dev).index_add_(
-        0, flat_c, Houter.reshape(-1, 6, 6))
-    b_c = torch.zeros(C, 6, dtype=dt, device=dev).index_add_(
-        0, flat_c, Jr.reshape(-1, 6))
-    yb = torch.zeros(C, 6, dtype=dt, device=dev).index_add_(
-        0, flat_c, Yb.reshape(-1, 6))
-    # per-landmark camera-aggregated factors
-    pc = (torch.arange(P, device=dev)[:, None] * C + oc).reshape(-1)
-    U = torch.zeros(P * C, 6, 3, dtype=dt, device=dev).index_add_(
-        0, pc, Y.reshape(-1, 6, 3)).reshape(P, C, 6, 3)
-    V = torch.zeros(P * C, 6, 3, dtype=dt, device=dev).index_add_(
-        0, pc, Wb.reshape(-1, 6, 3)).reshape(P, C, 6, 3)
+    # one sum per index: the camera's (Hcc, b_c, yb), and per landmark the
+    # camera-aggregated factors (U, V)
+    N = P * OPP
+    cam_sum, pair_sum = sums or schur_sums(oc, C)
+    cam_sums = cam_sum(torch.cat(
+        [Houter.reshape(N, 36), Jr.reshape(N, 6), Yb.reshape(N, 6)], -1))
+    Hcc = cam_sums[:, :36].reshape(C, 6, 6)
+    b_c, yb = cam_sums[:, 36:42], cam_sums[:, 42:]
+    UV = pair_sum(torch.cat([Y.reshape(N, 18), Wb.reshape(N, 18)], -1)
+                  ).reshape(P, C, 2, 6, 3)
+    U, V = UV[:, :, 0], UV[:, :, 1]
     S = -torch.einsum("pcik,pdjk->cdij", U, V)
     eye_c = torch.eye(C, dtype=dt, device=dev)
     S = S + eye_c[:, :, None, None] * Hcc[:, None, :, :]

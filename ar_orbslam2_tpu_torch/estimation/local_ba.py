@@ -53,6 +53,7 @@ def bundle_adjust(cam_R, cam_t, cam_fixed, cam_valid,
     cam_fixed_o = cam_fixed[oc]
     obs_valid_f = obs_valid.to(f32)
     pt_valid_f = pt_valid.to(f32)[:, None]
+    sums = ba_core.schur_sums(oc, C)
 
     def residuals(R_all, t_all, X):
         return ba_core.ba_residuals(cam, R_all, t_all, X, oc,
@@ -72,7 +73,7 @@ def bundle_adjust(cam_R, cam_t, cam_fixed, cam_valid,
         # camera gradient -> zero their Jc
         Jcz = torch.where(cam_fixed_o[..., None, None], torch.zeros_like(Jc),
                           Jc)
-        blocks = ba_core.schur_blocks(r, Jcz, Jpt, w, oc, C, lam)
+        blocks = ba_core.schur_blocks(r, Jcz, Jpt, w, oc, C, lam, sums)
         dx_c = ba_core.solve_camera_system(
             blocks["S"], blocks["b_s"], cam_valid & ~cam_fixed, lam)
         dx_p = ba_core.backsub_points(blocks, dx_c, oc)

@@ -12,9 +12,11 @@ the JAX package:
 
 The JAX package gathers and sums edge blocks into vertices with one-hot
 matmuls (a TPU choice: scatters serialize there); here the sums are
-``index_add_`` / ``index_put_(accumulate=True)``, so they agree with the
-reference to float32 rounding, not bit for bit. Plain torch (the JAX
-package has no hand kernel here); float32, no TF32, no host read.
+``core.sums.IndexSum``, planned once per graph, so they agree with the
+reference to float32 rounding, not bit for bit, and like the matmuls they
+add in an order fixed by the inputs: one graph gives the same bits on
+every run. Plain torch (the JAX package has no hand kernel here);
+float32, no TF32, no host read.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from torch.func import jacfwd
 
 from ..core import lie
+from ..core.sums import IndexSum
 
 # above this vertex count the dense (7K, 7K) system is replaced by
 # block-Jacobi-preconditioned CG (memory O(E) instead of O(K^2))
@@ -29,14 +32,13 @@ CG_THRESHOLD = 128
 CG_ITERS = 80
 
 
-def _scatter_rows(idx, blocks, K):
-    """sum over e of blocks[e] into row idx[e]: (E, ...) -> (K, ...)."""
-    out = torch.zeros((K,) + blocks.shape[1:], dtype=blocks.dtype,
-                      device=blocks.device)
-    return out.index_add_(0, idx, blocks)
+def _scatter_rows(rows, blocks_i, blocks_j):
+    """sum of blocks_i[e] into row ei[e] and of blocks_j[e] into row ej[e]:
+    two (E, ...) -> (K, ...), one sum; rows = IndexSum(cat([ei, ej]), K)."""
+    return rows(torch.cat([blocks_i, blocks_j]))
 
 
-def _solve_pcg(Hii, Hjj, Hij, ei, ej, b, free, damping):
+def _solve_pcg(Hii, Hjj, Hij, ei, ej, b, free, damping, rows):
     """Matrix-free PCG on the edge-block normal system. Solves H x = b over
     free vertices (fixed rows behave as identity). Returns x (K, 7) such
     that the GN update is -x."""
@@ -51,12 +53,12 @@ def _solve_pcg(Hii, Hjj, Hij, ei, ej, b, free, damping):
                  + torch.einsum("eij,ej->ei", Hij, vj))
         out_j = (torch.einsum("eij,ej->ei", Hjj, vj)
                  + torch.einsum("eji,ej->ei", Hij, vi))
-        out = _scatter_rows(ei, out_i, K).index_add_(0, ej, out_j)
+        out = _scatter_rows(rows, out_i, out_j)
         # damping everywhere; fixed rows act as identity
         return torch.where(free[:, None], out + damping * v, v)
 
     # block-Jacobi preconditioner from per-vertex diagonal blocks
-    D = _scatter_rows(ei, Hii, K).index_add_(0, ej, Hjj)
+    D = _scatter_rows(rows, Hii, Hjj)
     D = D + (damping + 1e-8) * eye7
     D = torch.where(free[:, None, None], D, eye7)
     D_inv = torch.linalg.inv_ex(D).inverse      # _ex: no host sync
@@ -90,13 +92,12 @@ def _edge_residual(Ri, ti, si, Rj, tj, sj, Rm, tm, sm, vi, vj):
 
 
 @torch.no_grad()
-def _dense_solve(Hii, Hjj, Hij, ei, ej, b, free, damping):
+def _dense_solve(Hii, Hjj, Hij, b, free, damping, blocks):
+    """blocks: IndexSum of the edges' (ii, jj, ij, ji) blocks into the
+    (K*K) block grid."""
     K = b.shape[0]
-    Hb = torch.zeros((K, K, 7, 7), dtype=torch.float32, device=b.device)
-    Hb.index_put_((ei, ei), Hii, accumulate=True)
-    Hb.index_put_((ej, ej), Hjj, accumulate=True)
-    Hb.index_put_((ei, ej), Hij, accumulate=True)
-    Hb.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
+    Hb = blocks(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)])
+                ).reshape(K, K, 7, 7)
     Hd = Hb.permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
     bd = b.reshape(7 * K)
     # pin fixed/invalid vertices with identity rows
@@ -140,6 +141,12 @@ def optimize_essential_graph(R, t, s, vert_valid, fixed,
     # tangent perturbations are shared by every edge: the residual of edge
     # e depends on its own endpoints only, so d r_e / d v is edge e's block
     zE = torch.zeros((E, 7), dtype=torch.float32, device=dev)
+    # the graph's sums, planned once: into the vertices, and (dense path)
+    # into the (K, K) block grid
+    rows = IndexSum(torch.cat([ei, ej]), K)
+    if K <= CG_THRESHOLD:
+        grid = IndexSum(torch.cat([ei, ej, ei, ej]) * K
+                        + torch.cat([ei, ej, ej, ei]), K * K)
 
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     for _ in range(n_iters):
@@ -169,13 +176,14 @@ def optimize_essential_graph(R, t, s, vert_valid, fixed,
             Hij = torch.einsum("eri,erj->eij", Ji, Jj)
             bi = torch.einsum("eri,er->ei", Ji, rw)
             bj = torch.einsum("eri,er->ei", Jj, rw)
-            b = _scatter_rows(ei, bi, K).index_add_(0, ej, bj)
+            b = _scatter_rows(rows, bi, bj)
             b = torch.where(free[:, None], b, torch.zeros_like(b))
 
             if K <= CG_THRESHOLD:
-                dv = -_dense_solve(Hii, Hjj, Hij, ei, ej, b, free, damping)
+                dv = -_dense_solve(Hii, Hjj, Hij, b, free, damping, grid)
             else:
-                dv = -_solve_pcg(Hii, Hjj, Hij, ei, ej, b, free, damping)
+                dv = -_solve_pcg(Hii, Hjj, Hij, ei, ej, b, free, damping,
+                                 rows)
             if fix_scale:
                 dv[:, 6] = 0.0
             dv = torch.where(free[:, None], dv, torch.zeros_like(dv))

@@ -150,6 +150,7 @@ def _lm(mesh, cam_R, cam_t, cam_fixed, cam_valid, pts, pt_valid, obs_cam,
     cam_fixed_o = cam_fixed[lo:lo + W][oc]
     base = obs_valid.to(f32) * pt_valid.to(f32)[:, None] * cam_valid_o
     cam_free = cam_valid & ~cam_fixed
+    sums = ba_core.schur_sums(oc, W)
 
     def residuals(R_all, t_all, X):
         return ba_core.ba_residuals(cam, R_all[lo:lo + W], t_all[lo:lo + W],
@@ -166,7 +167,7 @@ def _lm(mesh, cam_R, cam_t, cam_fixed, cam_valid, pts, pt_valid, obs_cam,
         w = inv_sigma2 * w_h * mask * (~behind).to(f32)
         Jcz = torch.where(cam_fixed_o[..., None, None], torch.zeros_like(Jc),
                           Jc)
-        blocks = ba_core.schur_blocks(r, Jcz, Jpt, w, oc, W, lam)
+        blocks = ba_core.schur_blocks(r, Jcz, Jpt, w, oc, W, lam, sums)
         S, b_s = camera_system(blocks["S"], blocks["b_s"])
         dx_c = ba_core.solve_camera_system(S, b_s, cam_free, lam)
         dx_p = ba_core.backsub_points(blocks, dx_c[lo:lo + W], oc)

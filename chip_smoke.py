@@ -81,6 +81,11 @@ non-zero before the final line):
                 save_trajectory_tum writes) stays below the ATE limit;
                 [loop-ate-room] prints each leg's exported ATE, its RMSE
                 by quarter of the walk and its ratio to the keyframe ATE.
+                One input, one result: two fresh systems walk the sync
+                leg without loops over its first 160 frames, each in one
+                call of track_monocular_batch; their returned poses,
+                keyframe count and keyframe poses must be bit-identical
+                ([loop-repro-room] prints the first differing frame).
                 Then
                 test_loop_closure_improves_ate's noisy orbit at that test's
                 size, loops on and off (>= 1 loop; ATE reported). Prints
@@ -91,9 +96,15 @@ non-zero before the final line):
                 async_mapping=True), loop closing and relocalization on,
                 on phase 6's sweep with phase 6's gates; ms/frame beside
                 phase 6's and the worker's loop-stage ms per keyframe;
- 10. depth    — the depth sensors at full width (1024 keypoints, 4096-
-                landmark bundle, 1024 keyframe slots; fx = fy = 500, bf =
-                50: a 0.1 m baseline), per-frame tracking with every other
+ 10. depth    — (phases 10, 11 and 12 run in a process of their own
+                beside phase 8 when it runs: 8, 10 and 11 wait on the
+                host, and no gate of 10, 11 or 12 reads a time; the lines
+                of all four then carry contended_with=, and the timing
+                line contended=: their times were taken while the other
+                process shared the card and the host) the depth sensors
+                at full width (1024 keypoints, 4096-landmark bundle, 1024
+                keyframe slots; fx = fy = 500, bf = 50: a 0.1 m
+                baseline), per-frame tracking with every other
                 default (loop closing with the scale fixed, relocalization):
                 SlamConfig(sensor="STEREO") through precompile() and
                 track_stereo on 60 rendered pairs (motion 0.4), and
@@ -107,10 +118,11 @@ non-zero before the final line):
                 events, loop stage; ORB, stereo match and subpixel
                 refinement timed apart, each synchronised, on five of the
                 run's pairs) and peak memory. Then the stereo path
-                on a camera circling a plane (120 pairs): the same gates
-                and >= 3 keyframes, each after the first seeding depth
-                landmarks; its map saved, loaded into a fresh system in
-                localization mode and 30 frames of the circle tracked again
+                on a camera circling a plane (the first 90 of a 120-pair
+                circle): the same gates and >= 3 keyframes, each after the
+                first seeding depth landmarks; its map saved, loaded into
+                a fresh system in localization mode and 20 frames of the
+                circle tracked again
                 from its middle: relocalized within 3 frames, >= 90%
                 tracked after, ATE < 0.05, no keyframe or landmark added.
                 Then tests/test_localization_vo.py's RGB-D scene (the VO
@@ -122,7 +134,8 @@ non-zero before the final line):
                 run's own inputs.
  11. apps     — the user's entry points, as a user calls them, on a
                 dataset directory the phase writes under a temporary
-                directory: phase 6's sweep (64 frames) as TUM rgb/ PNGs with
+                directory: the first 48 frames of phase 6's sweep
+                rendered at 64 as TUM rgb/ PNGs with
                 rgb.txt, groundtruth.txt and a FileStorage settings file
                 (fx = fy = 500, cx = 320, cy = 240, Camera.fps 30,
                 ORBextractor.nFeatures 1000: 1024 keypoints). 11a: run_eval
@@ -140,7 +153,7 @@ non-zero before the final line):
                 system's frame step captured once, two stores; aggregate
                 fps. 11d: the loop-recall study at run_study's defaults on
                 the card and on the CPU: ranks equal but for at most one
-                query. 11e: run_eval tum-rgbd on 24 frames with the exact
+                query. 11e: run_eval tum-rgbd on 16 frames with the exact
                 depth as 16-bit PNGs at DepthMapFactor 5000: exit 0 under
                 the 0.05 m gate without scale alignment, per frame. Every
                 search of every leg is held bit for bit against its plain
@@ -163,9 +176,16 @@ non-zero before the final line):
                 1e-3 m on translations and the median landmark, every
                 cost finite and below the cost before, the banded layout
                 keeping every observation of a live keyframe; ms per
-                route and collectives per LM iteration; 12c
-                multihost.selftest in both groups. One card shows the
-                exchange code, not interconnect bandwidth.
+                route and collectives per LM iteration; the
+                single-device global BA run twice on the loaded map, and
+                optimize_essential_graph twice on one drifted circle on
+                its dense path (64 vertices) and on its PCG path (192),
+                each pair bit-identical ([solver-repro]); 12c
+                multihost.selftest in both groups. Each group has 300 s;
+                a rank still running 30 s after its work was done on every
+                rank fails the phase with its Python stacks
+                ([dist-stopped-rank]). One card shows the exchange code,
+                not interconnect bandwidth.
 
 The kernel's `bound_ms` is the least time the card could take for the
 timed call: the larger of its bytes (every input read once, every output
@@ -214,18 +234,21 @@ LOOP_IMAGES = 440          # phase 8: frames of the rendered room loop
 LOOP_TURNS = 1.1           # phase 8: the circle, then a tenth more of it
 ROOM_RADIUS = 1.5          # phase 8: the circle's radius in the 8 m room
 S12_TRUTH_GATE_DEG = 5.0   # phase 8: first loop's S12 vs the true rotation
+REPRO_FRAMES = 160         # phase 8: the sync leg without loops, twice
 _SCENES = {}               # phase 8: the room loop, rendered once
 PHASE6 = {}                # phase 6's ms/frame, printed beside phase 9's
 DEPTH_BF = 50.0            # phase 10: fx * baseline (0.1 m)
 DEPTH_FRAMES = 60          # phase 10: rendered stereo pairs
 DEPTH_MOTION = 0.4
 DEPTH_PRECOMPILE_FRAMES = 8
-DEPTH_LOCALIZATION_FRAMES = 30  # phase 10c: frames tracked on the loaded map
+DEPTH_LOCALIZATION_FRAMES = 20  # phase 10c: frames tracked on the loaded map
 DEPTH_LOOP_FRAMES = 120    # phase 10a: the stereo circle over the plane
+DEPTH_LOOP_TRACKED = 90    # phase 10a: its first frames, tracked
 SLOT_CAPACITY = 16         # phase 10d: MapConfig(max_keyframes=...)
 SLOT_LEG = 40              # phase 10d: frames of one sweep over the arc
 SLOT_FRAMES = 160          # phase 10d: four sweeps
-APPS_FRAMES = 64           # phase 11a: run_eval tum on phase 6's sweep
+APPS_FRAMES = 64           # phase 11: phase 6's sweep, rendered
+APPS_EVAL_FRAMES = 48      # phase 11a: its first frames, run_eval tum
 APPS_AR_FRAMES = 40        # phase 11b: run_ar on the same directory
 APPS_CUBE_AT = 30          # phase 11b: the frame that presses "Add Cube"
 APPS_PLANE_INLIERS = 20    # phase 11b: detect_plane's min_inliers
@@ -234,13 +257,14 @@ APPS_DOT_TOL_PX = 1e-3     # phase 11b: a dot is a keypoint of its image
 APPS_DOT_EVERY = 4         # phase 11b: fused frames whose dots are checked
 APPS_MULTI_FRAMES = 40     # phase 11c: tests/test_run_multi.py's size
 APPS_MULTI_TRACKED = 0.6   # phase 11c: tests/test_run_multi.py's gate
-APPS_RGBD_FRAMES = 24      # phase 11e
+APPS_RGBD_FRAMES = 16      # phase 11e
 APPS_DEPTH_FACTOR = 5000.0  # TUM's DepthMapFactor: 16-bit PNG per meter
 DIST_WORLD_TOL = 1e-4      # phase 12: world 2 vs world 1 costs, relative
 DIST_WORLD_POS_TOL = 1e-3  # phase 12: world 2 vs world 1 translations and
 #                            median landmark, metres: the float32 LM's floor
 #                            on a 100-camera map is ~1e-4 (PERF.md §6)
 BAND_TOL = 5e-3            # phase 12: banded vs dense (tests/test_partition)
+DIST_SPAWN_LIMIT_S = 300   # phase 12: each group's time, start-up included
 DIST_CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=50.0,
                    width=640, height=480)   # phase 12's stereo map
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -257,7 +281,14 @@ def fail(msg):
     sys.exit(1)
 
 
+CONTENDED = []             # phases running meanwhile in another process
+
+
 def phase(tag, **numbers):
+    """Print one phase line; while another process runs phases beside
+    this one, the line says so: its times share the card and the host."""
+    if CONTENDED:
+        numbers["contended_with"] = "phases" + ",".join(map(str, CONTENDED))
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
           flush=True)
 
@@ -1498,6 +1529,69 @@ def room_loop_ate_without_loops(torch, CH, async_mapping):
     return ate_kf, ate_exp, spans, launches
 
 
+def room_sync_first_frames(CH):
+    """The sync room leg without loops over its first REPRO_FRAMES frames,
+    in a system of its own and one call of track_monocular_batch: (its
+    returned poses, the ids and poses of its live keyframes, kernel
+    launches, wall seconds)."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.core.camera import Camera
+    from ar_orbslam2_tpu_torch.system.slam import SlamConfig, SlamSystem
+    cam = Camera(**CAM_KW)
+    imgs, _, _ = room_loop(cam)
+    slam = SlamSystem(cam, SlamConfig(enable_loop_closing=False),
+                      device="cuda")
+    CH.fused_windowed_top2.launches = 0
+    t0 = time.perf_counter()
+    poses = slam.track_monocular_batch(
+        list(imgs[:REPRO_FRAMES]),
+        timestamps=[i / 30.0 for i in range(REPRO_FRAMES)], chunk=CHUNK)
+    wall = time.perf_counter() - t0
+    slam.shutdown()
+    s = slam.store
+    ids = s.keyframe_ids()
+    return dict(poses=[None if p is None else np.array(p) for p in poses],
+                kf_ids=ids.copy(), kf_R=s.kf_R[ids].copy(),
+                kf_t=s.kf_t[ids].copy(),
+                launches=CH.fused_windowed_top2.launches, wall=wall)
+
+
+def room_sync_twice(CH):
+    """One input, one result: the sync room leg without loops over its
+    first REPRO_FRAMES frames, in two fresh systems; their returned poses,
+    keyframe count and keyframe poses must be equal bit for bit. Returns
+    kernel launches."""
+    import numpy as np
+    first, again = (room_sync_first_frames(CH) for _ in range(2))
+    launches = first["launches"] + again["launches"]
+
+    def same(a, b):
+        return (a is None) == (b is None) and (a is None
+                                               or np.array_equal(a, b))
+    diff = [i for i, (a, b) in enumerate(zip(first["poses"], again["poses"]))
+            if not same(a, b)]
+    kf_equal = all(np.array_equal(first[k], again[k])
+                   for k in ("kf_ids", "kf_R", "kf_t"))
+    phase("loop-repro-room", frames=REPRO_FRAMES,
+          config="SlamConfig(enable_loop_closing=False)",
+          poses_bit_identical=not diff,
+          first_differing_frame=diff[0] if diff else "none",
+          differing_frames=len(diff),
+          keyframes=f"{len(first['kf_ids'])}/{len(again['kf_ids'])}",
+          keyframe_poses_bit_identical=kf_equal,
+          wall_s=f"{first['wall']:.2f}/{again['wall']:.2f}",
+          kernel_launches=launches)
+    if diff or not kf_equal or len(first["poses"]) != len(again["poses"]):
+        fail(f"loop-repro-room: the sync room leg without loops gave "
+             f"two results in two runs over {REPRO_FRAMES} frames: "
+             f"first differing frame "
+             f"{diff[0] if diff else 'none'}, keyframes "
+             f"{len(first['kf_ids'])} / {len(again['kf_ids'])}, keyframe "
+             f"poses equal {kf_equal}")
+    return launches
+
+
 def run_loop_images(torch, CH, async_mapping):
     """The room loop at full width through precompile() and
     track_monocular_batch(chunk=8): SlamConfig() (the loop closes inline)
@@ -1608,6 +1702,8 @@ def run_loop_path(torch, CH):
                                                      async_mapping)
         n_off += n
     launches += n_off
+    # one input, one result: the sync leg without loops, twice
+    launches += room_sync_twice(CH)
     phase("loop-ate-room", frames=LOOP_IMAGES, **{
         f"{key}_{name}": value for name, (kf, exp, spans) in legs.items()
         for key, value in (("ate_keyframes", f"{kf:.5f}"),
@@ -2179,8 +2275,9 @@ def run_depth_path(torch, CH):
     # the sway above keeps most of the first keyframe's landmarks in view,
     # so the map keeps one keyframe (PERF.md §6); the keyframe path
     # runs on a camera that travels: a circle over a plane 1.5 m away
-    loop = synthetic.render_stereo_plane_loop(
-        cam, n_frames=DEPTH_LOOP_FRAMES, radius=1.0, tilt=0.35)
+    loop = tuple(x[:DEPTH_LOOP_TRACKED] for x in
+                 synthetic.render_stereo_plane_loop(
+                     cam, n_frames=DEPTH_LOOP_FRAMES, radius=1.0, tilt=0.35))
     mapped, n = run_depth_sequence(torch, CH, "STEREO", loop,
                                    "depth-stereo-loop", plane=1.5,
                                    depth_band=(1.2, 2.0), keyframes=True)
@@ -2195,7 +2292,8 @@ def run_depth_path(torch, CH):
 # ---------------------------------------------------------------------------
 def write_apps_inputs(root):
     """Phase 11's datasets, written under `root`: phase 6's sweep rendered
-    at APPS_FRAMES frames as a TUM directory (rgb/, rgb.txt,
+    at APPS_FRAMES frames, its first APPS_EVAL_FRAMES as a TUM directory
+    (rgb/, rgb.txt,
     groundtruth.txt) with a FileStorage settings file (the renderer's
     intrinsics, Camera.fps 30, ORBextractor.nFeatures 1000); and its first
     APPS_RGBD_FRAMES frames with the plane's exact depth maps as 16-bit PNGs
@@ -2203,6 +2301,8 @@ def write_apps_inputs(root):
     from ar_orbslam2_tpu_torch.data import datasets
     from ar_orbslam2_tpu_torch.utils.config import write_settings
     cam, imgs, R_cw, t_cw = make_sequence(APPS_FRAMES, FUSED_MOTION)
+    n = APPS_EVAL_FRAMES
+    imgs, R_cw, t_cw = imgs[:n], R_cw[:n], t_cw[:n]
     mono = os.path.join(root, "mono")
     datasets.write_tum_sequence(mono, imgs, R_cw, t_cw)
     write_settings(os.path.join(mono, "settings.yaml"), cam, fps=30.0,
@@ -2576,6 +2676,83 @@ def dist_rank(rank, world, device, map_path, out):
         np.savez(out, **saved)
 
 
+def essential_graph_problem(torch, K, seed=7, drift=0.01):
+    """tests/test_torch_sim3.py's drifted circle of K Sim3 vertices (the
+    first fixed), with edges to the next vertex, the one after it and
+    round the loop, as optimize_essential_graph's arguments on the card."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.core import lie
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(K) / K
+    R = lie.so3_exp(torch.tensor(np.stack([0 * a, a, 0 * a], -1),
+                                 dtype=torch.float32)).numpy()
+    c = np.stack([np.cos(a), 0 * a, np.sin(a)], -1) * 3.0
+    t = -(R @ c[..., None])[..., 0]
+    ei = np.r_[np.arange(K), np.arange(K - 2)]
+    ej = np.r_[(np.arange(K) + 1) % K, np.arange(2, K)]
+    eR = R[ej] @ np.swapaxes(R[ei], -1, -2)
+    et = t[ej] - (eR @ t[ei][..., None])[..., 0]
+    dw = rng.normal(0, drift * np.arange(K)[:, None], (K, 3))
+    R0 = lie.so3_exp(torch.tensor(dw, dtype=torch.float32)).numpy() @ R
+    t0 = t + rng.normal(0, 2.5 * drift * np.arange(K)[:, None], (K, 3))
+    E = len(ei)
+    fixed = np.arange(K) == 0
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+    return (dev(R0), dev(t0), dev(np.ones(K)), dev(np.ones(K), torch.bool),
+            dev(fixed, torch.bool), dev(ei, torch.int32),
+            dev(ej, torch.int32), dev(eR), dev(et), dev(np.ones(E)),
+            dev(np.ones(E), torch.bool))
+
+
+def solver_repro(torch, first, second, first_cost, second_cost):
+    """One input, one result, for the solvers alone: two single-device
+    global BAs of one loaded map (`first`, `second`) must leave the same
+    keyframe poses and landmarks bit for bit, and the essential graph run
+    twice on one input, on its dense path (K <= CG_THRESHOLD) and on its
+    PCG path, the same poses."""
+    import numpy as np
+
+    from ar_orbslam2_tpu_torch.estimation import pose_graph
+    kf, mp = second.keyframe_ids(), second.map_point_ids()
+    gba_same = (np.array_equal(first.keyframe_ids(), kf)
+                and np.array_equal(first.kf_R[kf], second.kf_R[kf])
+                and np.array_equal(first.kf_t[kf], second.kf_t[kf])
+                and np.array_equal(first.mp_pos[mp], second.mp_pos[mp])
+                and first_cost == second_cost)
+    numbers = dict(gba_bit_identical=gba_same,
+                   gba_costs=f"{first_cost!r}/{second_cost!r}")
+    faults = [] if gba_same else ["global BA"]
+    for path, K in (("dense", pose_graph.CG_THRESHOLD // 2),
+                    ("pcg", pose_graph.CG_THRESHOLD + 64)):
+        args = essential_graph_problem(torch, K)
+        runs, ms = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pose_graph.optimize_essential_graph(*args)
+            runs.append([out[k].cpu().numpy() for k in ("R", "t", "s",
+                                                        "cost")])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        same = all(np.array_equal(a, b) for a, b in zip(*runs))
+        numbers.update({f"essential_{path}_K": K,
+                        f"essential_{path}_bit_identical": same,
+                        f"essential_{path}_ms": "/".join(f"{x:.1f}"
+                                                         for x in ms),
+                        f"essential_{path}_cost": f"{float(runs[0][3]):.6g}"})
+        if not same:
+            faults.append(f"the essential graph's {path} path (K = {K})")
+        if not all(np.isfinite(x).all() for x in runs[0]):
+            faults.append(f"the essential graph's {path} path gave "
+                          "non-finite poses")
+    phase("solver-repro", **numbers)
+    if faults:
+        fail("solver-repro: another result on the second run of "
+             + ", ".join(faults))
+
+
 def run_dist_path(torch, CH):
     """Phase 12: a stereo map of a walk round a room with its loop closed
     (synthetic.stereo_loop_map: 100 keyframes, 16,000 landmarks, scale
@@ -2585,6 +2762,7 @@ def run_dist_path(torch, CH):
     each running dist_rank on the loaded map. Returns 0: no search runs
     on this path."""
     import tempfile
+    import warnings
 
     import numpy as np
 
@@ -2593,7 +2771,8 @@ def run_dist_path(torch, CH):
     from ar_orbslam2_tpu_torch.mapping import global_ba
     from ar_orbslam2_tpu_torch.mapstore.checkpoint import load_map, save_map
     from ar_orbslam2_tpu_torch.parallel import partition
-    from ar_orbslam2_tpu_torch.parallel.multihost import spawn_local
+    from ar_orbslam2_tpu_torch.parallel.multihost import (
+        RankStoppedWarning, spawn_local)
 
     cam = Camera(**DIST_CAM_KW)
     t0 = time.perf_counter()
@@ -2631,20 +2810,32 @@ def run_dist_path(torch, CH):
         g = global_ba.gather_global(store)
         cost_before = float(global_ba.dispatch_global_ba(
             g, cam, n_iters=0, distributed=False, device="cuda")["cost"])
-        global_ba.global_bundle_adjustment(load_map(path), cam,
-                                           distributed=False, device="cuda")
+        first = load_map(path)      # warm-up, and the first of two runs
+        first_cost = global_ba.global_bundle_adjustment(
+            first, cam, distributed=False, device="cuda")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         single_cost = global_ba.global_bundle_adjustment(
             store, cam, distributed=False, device="cuda")
         single_ms = (time.perf_counter() - t1) * 1e3
+        solver_repro(torch, first, store, first_cost, single_cost)
         res = {}
         for world, backend, device in ((1, "nccl", None),
                                        (2, "gloo", "cuda:0")):
             out = os.path.join(d, f"world{world}.npz")
             t1 = time.perf_counter()
-            spawn_local(world, dist_rank, device, path, out,
-                        backend=backend)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RankStoppedWarning)
+                spawn_local(world, dist_rank, device, path, out,
+                            backend=backend, timeout=DIST_SPAWN_LIMIT_S)
+            stopped = [str(w.message) for w in caught
+                       if issubclass(w.category, RankStoppedWarning)]
+            if stopped:
+                # a rank that hung after its work: printed with its stacks
+                phase("dist-stopped-rank", world=world, backend=backend,
+                      spawn_s=f"{time.perf_counter() - t1:.2f}")
+                print("\n".join(stopped), flush=True)
+                fail(f"dist: world {world} ({backend}): {stopped[0]}")
             res[world] = dict(np.load(out), spawn_s=time.perf_counter() - t1)
     kf, mp = store.keyframe_ids(), store.map_point_ids()
     w1, w2 = res[1], res[2]
@@ -2720,14 +2911,76 @@ def run_dist_path(torch, CH):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# a phase in a process of its own, beside a longer one
+# ---------------------------------------------------------------------------
+BESIDE = (10, 11, 12)  # run beside phase 8: 8, 10 and 11 wait on the
+#                        host, and none of 10's, 11's or 12's gates reads
+#                        a time
+BESIDE_LIMIT_S = 600  # the most they may take after phase 8
+
+
+def start_beside(phases):
+    """Start ``chip_smoke.py --phases <phases>`` in a child process, its
+    output to a temporary file; it is stopped if this process exits
+    first."""
+    import atexit
+    import tempfile
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phases",
+         ",".join(map(str, phases)), "--contended-with", "8"],
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    atexit.register(stop_child, proc)
+    return proc, out
+
+
+def stop_child(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_beside(phases, proc, out):
+    """Wait for the process of `phases`, print its phase lines, and return
+    (its kernel launches on the main path, {phase: seconds}); fail if it
+    failed."""
+    try:
+        rc = proc.wait(timeout=BESIDE_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        stop_child(proc)
+        rc = None
+    out.seek(0)
+    lines = out.read().splitlines()
+    numbers = {}
+    for line in lines:
+        if line.startswith(("[launches]", "[timing]")):
+            numbers.update(kv.split("=", 1) for kv in line.split()[1:])
+        elif line.startswith("[") and not line.startswith(("[card]",
+                                                           "[build]")):
+            print(line, flush=True)
+    if rc != 0:
+        print("\n".join(lines[-200:]), file=sys.stderr, flush=True)
+        fail(f"phases {phases}, run beside phase 8, "
+             + ("did not finish" if rc is None else f"exited with {rc}")
+             + ": " + " | ".join(lines[-3:]))
+    return int(numbers["main_path"]), {
+        n: float(numbers[f"phase{n}_s"]) for n in phases}
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases of 3-12 to run alone, for "
                          "development (the result lines are then withheld)")
+    ap.add_argument("--contended-with", default="",
+                    help="phases another process runs meanwhile, named on "
+                         "every phase line (the script sets it for the "
+                         "process it starts beside phase 8)")
     opts = ap.parse_args()
     only = {int(x) for x in opts.phases.split(",") if x}
+    CONTENDED[:] = [int(x) for x in opts.contended_with.split(",") if x]
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -2788,20 +3041,34 @@ def main():
     # 6-12: the fused, chunked, pipelined main path; loss and
     # relocalization on it; loop closing, inline and on the mapping worker;
     # the configuration bench.py builds; the depth sensors; the apps; the
-    # distributed routes
+    # distributed routes. Phases 10, 11 and 12 run in a process of their
+    # own beside phase 8 when it runs (BESIDE).
+    beside = [m for m in BESIDE if wanted(m)] if wanted(8) else []
     for n, run in ((6, run_fused_path), (7, run_reloc_path),
                    (8, run_loop_path), (9, run_default_config),
                    (10, run_depth_path), (11, run_apps_path),
                    (12, run_dist_path)):
-        if wanted(n):
-            launches += timed(n, lambda: run(torch, CH))
+        if not wanted(n) or n in beside:
+            continue
+        child = start_beside(beside) if beside and n == 8 else None
+        if child:
+            CONTENDED[:] = beside
+        launches += timed(n, lambda: run(torch, CH))
+        if child:
+            CONTENDED[:] = []
+            n_child, child_seconds = finish_beside(beside, *child)
+            seconds.update(child_seconds)
+            launches += n_child
     phase("timing", **{f"phase{n}_s": v for n, v in seconds.items()},
-          total_s=round(time.perf_counter() - START, 1))
+          total_s=round(time.perf_counter() - START, 1),
+          **({"contended": ",".join(map(str, [8] + beside))} if beside
+             else {}))
     rec["launches"] = launches
     torch.cuda.synchronize()
     if profiled:                # the profiler last: see profile_searches
         profile_searches(torch, profiled, rec)
     if only:
+        phase("launches", main_path=launches)
         print(f"phases {sorted(only)} passed; run without --phases for "
               "the result lines", flush=True)
         return

@@ -5,7 +5,7 @@ gross outliers.
 
 Tolerances and why: the JAX package assembles the Schur system S with bf16
 operands (~0.4% relative noise per entry, an MXU speed trade); the port
-assembles it in f32 with index gathers/index_add. The LM iterations
+assembles it in f32 with index gathers/IndexSum. The LM iterations
 therefore take slightly different steps and stop at slightly different
 points of the same optimum: the robust cost agrees to 1e-3 relative, the
 camera poses to 1e-3 (rotation) / 2e-3 (translation, scene depth ~5), the

@@ -51,12 +51,42 @@ def test_a_failing_rank_raises(tmp_path):
         multihost.spawn_local(2, W.failing_rank, timeout=SPAWN_LIMIT_S)
 
 
+def test_every_failed_rank_is_named():
+    """Both ranks raise, each its own message, after the group is set up:
+    the error names both ranks with their own messages."""
+    with pytest.raises(RuntimeError) as err:
+        multihost.spawn_local(2, W.both_failing_rank, timeout=SPAWN_LIMIT_S)
+    text = str(err.value)
+    assert "2 of 2 ranks failed" in text
+    for r in (0, 1):
+        assert f"rank {r} failed in fn" in text
+        assert f"ValueError: rank {r} has its own complaint" in text
+
+
+def test_a_rank_stuck_in_tear_down_is_stopped(monkeypatch):
+    """fn returned on both ranks; rank 1 hangs in the group's tear-down:
+    spawn_local stops it within its grace, raises nothing, and warns,
+    naming rank 1 alone with the stack it hung in."""
+    monkeypatch.setattr(multihost, "EXIT_GRACE_S", 2.0)
+    t0 = time.monotonic()
+    with pytest.warns(multihost.RankStoppedWarning) as caught:
+        multihost.spawn_local(2, W.lingering_rank, 600.0,
+                              timeout=SPAWN_LIMIT_S)
+    assert time.monotonic() - t0 < 60.0
+    text = "\n".join(str(w.message) for w in caught
+                     if w.category is multihost.RankStoppedWarning)
+    assert text.startswith("rank 1 returned from fn but was still running")
+    assert "rank 0" not in text
+    assert "in slow" in text            # the hook it was sleeping in
+
+
 def test_a_stalled_rank_fails_at_the_deadline():
     """Rank 1 sleeps far past a short deadline: spawn_local stops the
     ranks within seconds of it and names rank 1."""
     deadline = 10.0
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match=r"rank 1\b.*did not finish "
-                       r"within 10\.0 s"):
+                       r"within 10\.0 s") as err:
         multihost.spawn_local(2, W.stalled_rank, 600.0, timeout=deadline)
     assert time.monotonic() - t0 < deadline + 10.0
+    assert "in stalled_rank" in str(err.value)     # where it was stopped

@@ -121,3 +121,22 @@ def stalled_rank(rank, world, seconds):
     """Rank 1 sleeps for `seconds`: spawn_local's deadline must stop it."""
     if rank == 1:
         time.sleep(seconds)
+
+
+def both_failing_rank(rank, world):
+    """Every rank raises its own message: spawn_local must name each."""
+    raise ValueError(f"rank {rank} has its own complaint")
+
+
+def lingering_rank(rank, world, seconds):
+    """fn returns on every rank; rank 1 then lingers in the group's
+    tear-down (a hook on destroy_process_group sleeps for `seconds`):
+    spawn_local must stop it and return."""
+    import torch.distributed as dist
+    if rank == 1:
+        destroy = dist.destroy_process_group
+
+        def slow(*a, **kw):
+            time.sleep(seconds)
+            return destroy(*a, **kw)
+        dist.destroy_process_group = slow
